@@ -28,18 +28,18 @@
 // read-only path and compared with the target in int64 registers, so
 // the int32 o_pso column is probed by int64 targets without the
 // promoted int64 copy of the column the TPU wrapper had to build.
-// Templated over the value and target widths (int32 and int64).
+// Templated over the value width (int32 and int64); targets are int64.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-template <typename V, typename T>
+template <typename V>
 __global__ void run_probe_kernel(const V* __restrict__ values,
                                  const int* __restrict__ lo,
                                  const int* __restrict__ hi,
-                                 const T* __restrict__ targets,
+                                 const int64_t* __restrict__ targets,
                                  long long r,
                                  int* __restrict__ pos,
                                  uint8_t* __restrict__ contains) {
@@ -47,25 +47,25 @@ __global__ void run_probe_kernel(const V* __restrict__ values,
   if (i >= r) return;
   const int l = lo[i];
   const int h = hi[i];
-  const long long t = (long long)targets[i];
+  const int64_t t = targets[i];
   int a = l, b = h;
   while (a < b) {  // first index in [l, h) with values[.] >= t
     const int mid = a + ((b - a) >> 1);
-    if ((long long)__ldg(values + mid) < t) a = mid + 1; else b = mid;
+    if ((int64_t)__ldg(values + mid) < t) a = mid + 1; else b = mid;
   }
   pos[i] = a;
-  contains[i] = (a < h && (long long)__ldg(values + a) == t) ? 1 : 0;
+  contains[i] = (a < h && (int64_t)__ldg(values + a) == t) ? 1 : 0;
 }
 
-template <typename V, typename T>
+template <typename V>
 void launch(const void* values, const void* lo, const void* hi,
             const void* targets, long long r, void* pos, void* contains,
             cudaStream_t stream) {
   const int threads = 256;
   const long long blocks = (r + threads - 1) / threads;
-  run_probe_kernel<V, T><<<(unsigned)blocks, threads, 0, stream>>>(
+  run_probe_kernel<V><<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const V*>(values), static_cast<const int*>(lo),
-      static_cast<const int*>(hi), static_cast<const T*>(targets), r,
+      static_cast<const int*>(hi), static_cast<const int64_t*>(targets), r,
       static_cast<int*>(pos), static_cast<uint8_t*>(contains));
 }
 
@@ -75,23 +75,18 @@ extern "C" {
 
 // values: int32 or int64 [n] (value_bits 32 or 64), each run sorted;
 // lo, hi: int32 [r] with 0 <= lo, hi <= n where lo < hi;
-// targets: int32 or int64 [r]; outputs int32 [r], uint8 [r].
+// targets: int64 [r]; outputs int32 [r], uint8 [r].
 // Returns cudaGetLastError() after the launch (0 on success).
 int run_probe_launch(const void* values, int value_bits, long long n,
                      const void* lo, const void* hi, const void* targets,
-                     int target_bits, long long r, void* pos,
-                     void* contains, void* stream) {
+                     long long r, void* pos, void* contains, void* stream) {
   if (n < 0 || n > 0x7fffffffLL || r < 0) return (int)cudaErrorInvalidValue;
   if (r == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (value_bits == 32 && target_bits == 64)
-    launch<int32_t, int64_t>(values, lo, hi, targets, r, pos, contains, s);
-  else if (value_bits == 32 && target_bits == 32)
-    launch<int32_t, int32_t>(values, lo, hi, targets, r, pos, contains, s);
-  else if (value_bits == 64 && target_bits == 64)
-    launch<int64_t, int64_t>(values, lo, hi, targets, r, pos, contains, s);
-  else if (value_bits == 64 && target_bits == 32)
-    launch<int64_t, int32_t>(values, lo, hi, targets, r, pos, contains, s);
+  if (value_bits == 32)
+    launch<int32_t>(values, lo, hi, targets, r, pos, contains, s);
+  else if (value_bits == 64)
+    launch<int64_t>(values, lo, hi, targets, r, pos, contains, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -26,8 +26,9 @@
 // only diverge at the first key equal to q, after which each finishes in
 // its own half), so a hit costs about log2 n + log2(run) loads rather
 // than 2 log2 n; keys are read through the read-only path (__ldg).
-// Comparisons are done in int64 registers whatever the stored widths, so
-// int32 and int64 columns and queries mix without a promoted copy.
+// Keys and queries are int64, the only widths the engine probes with (the
+// packed (p, s) / (p, o) key columns and the expansion's cumulative
+// degrees).
 // Exact at every edge: n == 0, queries below the first or above the last
 // key, the int64 max query, and negative keys (UNBOUND rows probe p*R-1).
 
@@ -36,23 +37,22 @@
 
 namespace {
 
-template <typename K, typename Q>
-__global__ void sorted_probe_kernel(const K* __restrict__ keys, int n,
-                                    const Q* __restrict__ queries,
+__global__ void sorted_probe_kernel(const int64_t* __restrict__ keys, int n,
+                                    const int64_t* __restrict__ queries,
                                     long long q,
                                     int* __restrict__ rank_lo,
                                     int* __restrict__ rank_hi,
                                     uint8_t* __restrict__ contains) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= q) return;
-  const long long x = (long long)queries[i];
+  const int64_t x = queries[i];
   // Joint phase: the answer of both searches lies in [lo, hi].
   int lo = 0, hi = n;
   int ulo = 0, uhi = 0;
   bool split = false;
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
-    const long long v = (long long)__ldg(keys + mid);
+    const int64_t v = __ldg(keys + mid);
     if (v < x) {
       lo = mid + 1;
     } else if (v > x) {
@@ -74,54 +74,36 @@ __global__ void sorted_probe_kernel(const K* __restrict__ keys, int n,
   }
   while (lo < hi) {  // first index with keys[.] >= x
     const int mid = lo + ((hi - lo) >> 1);
-    if ((long long)__ldg(keys + mid) < x) lo = mid + 1; else hi = mid;
+    if (__ldg(keys + mid) < x) lo = mid + 1; else hi = mid;
   }
   while (ulo < uhi) {  // first index with keys[.] > x
     const int mid = ulo + ((uhi - ulo) >> 1);
-    if ((long long)__ldg(keys + mid) <= x) ulo = mid + 1; else uhi = mid;
+    if (__ldg(keys + mid) <= x) ulo = mid + 1; else uhi = mid;
   }
   rank_lo[i] = lo;
   rank_hi[i] = ulo;
   contains[i] = 1;
 }
 
-template <typename K, typename Q>
-void launch(const void* keys, int n, const void* queries, long long q,
-            void* rank_lo, void* rank_hi, void* contains,
-            cudaStream_t stream) {
-  const int threads = 256;
-  const long long blocks = (q + threads - 1) / threads;
-  sorted_probe_kernel<K, Q><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const K*>(keys), n, static_cast<const Q*>(queries), q,
-      static_cast<int*>(rank_lo), static_cast<int*>(rank_hi),
-      static_cast<uint8_t*>(contains));
-}
-
 }  // namespace
 
 extern "C" {
 
-// keys: int32 or int64 [n], sorted ascending (key_bits 32 or 64);
-// queries: int32 or int64 [q]; outputs int32 [q], int32 [q], uint8 [q].
+// keys: int64 [n], sorted ascending; queries: int64 [q];
+// outputs int32 [q], int32 [q], uint8 [q].
 // Returns cudaGetLastError() after the launch (0 on success).
-int sorted_probe_launch(const void* keys, int key_bits, long long n,
-                        const void* queries, int query_bits, long long q,
-                        void* rank_lo, void* rank_hi, void* contains,
-                        void* stream) {
+int sorted_probe_launch(const void* keys, long long n, const void* queries,
+                        long long q, void* rank_lo, void* rank_hi,
+                        void* contains, void* stream) {
   if (n < 0 || n > 0x7fffffffLL || q < 0) return (int)cudaErrorInvalidValue;
   if (q == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nn = (int)n;
-  if (key_bits == 64 && query_bits == 64)
-    launch<int64_t, int64_t>(keys, nn, queries, q, rank_lo, rank_hi, contains, s);
-  else if (key_bits == 64 && query_bits == 32)
-    launch<int64_t, int32_t>(keys, nn, queries, q, rank_lo, rank_hi, contains, s);
-  else if (key_bits == 32 && query_bits == 64)
-    launch<int32_t, int64_t>(keys, nn, queries, q, rank_lo, rank_hi, contains, s);
-  else if (key_bits == 32 && query_bits == 32)
-    launch<int32_t, int32_t>(keys, nn, queries, q, rank_lo, rank_hi, contains, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long blocks = (q + threads - 1) / threads;
+  sorted_probe_kernel<<<(unsigned)blocks, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), (int)n,
+      static_cast<const int64_t*>(queries), q, static_cast<int*>(rank_lo),
+      static_cast<int*>(rank_hi), static_cast<uint8_t*>(contains));
   return (int)cudaGetLastError();
 }
 

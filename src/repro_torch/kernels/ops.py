@@ -10,7 +10,9 @@ By the device of the tensors, and nothing else: tensors on a CUDA device
 launch the hand-written CUDA kernel, tensors on the CPU run the plain
 PyTorch version (``repro_torch.kernels.ref``).  Any other device raises.
 There is no override switch, no small-batch cutoff and no fallback: on
-the card a failed build or launch raises to the caller.
+the card a failed build or launch raises to the caller.  The kernels
+take the widths the engine probes with — int64 keys and queries, int32
+or int64 run values with int64 targets — and raise on any other.
 
 Launches are counted in ``LAUNCHES`` (``LAUNCHES["sorted_probe"]``,
 ``LAUNCHES["run_probe"]``), one per kernel launch; the CPU path never

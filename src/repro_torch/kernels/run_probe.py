@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_INT_BITS = {torch.int32: 32, torch.int64: 64}
+_VALUE_BITS = {torch.int32: 32, torch.int64: 64}
 
 
 def run_probe_plain(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -38,7 +38,7 @@ def _entry():
     fn = _build.library("run_probe").run_probe_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, ll, p, p, p, i, ll, p, p, p]
+        fn.argtypes = [p, i, ll, p, p, p, ll, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -49,7 +49,7 @@ def run_probe_cuda(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     on a CUDA device, fewer than 2^31 entries; ``lo``/``hi``: int32 run
     bounds inside ``[0, len(values)]`` (the kernel reads
     ``values[lo:hi)`` unchecked — the store's eqrange produces them);
-    ``targets``: int32/int64.  ``lo``, ``hi`` and ``targets`` are
+    ``targets``: int64.  ``lo``, ``hi`` and ``targets`` are
     contiguous 1-D tensors of one length on the same device.  Raises on
     anything else, on a failed build and on a failed launch."""
     dev = values.device
@@ -59,13 +59,17 @@ def run_probe_cuda(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name} must be on the values' CUDA device, "
                              f"got {t.device}")
-        if t.dtype not in _INT_BITS or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D int32/int64 "
-                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D tensor, "
+                             f"got shape {tuple(t.shape)}")
         if name != "values" and t.shape[0] != r:
             raise ValueError(f"{name} has {t.shape[0]} rows, lo has {r}")
+    if values.dtype not in _VALUE_BITS:
+        raise ValueError(f"values must be int32 or int64, got {values.dtype}")
     if lo.dtype != torch.int32 or hi.dtype != torch.int32:
         raise ValueError("lo and hi must be int32 run bounds")
+    if targets.dtype != torch.int64:
+        raise ValueError(f"targets must be int64, got {targets.dtype}")
     n = values.shape[0]
     if n >= 2**31:
         raise ValueError(f"run_probe takes fewer than 2^31 values, got {n}")
@@ -76,10 +80,9 @@ def run_probe_cuda(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     fn = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(values.data_ptr(), _INT_BITS[values.dtype], n,
-                  lo.data_ptr(), hi.data_ptr(), targets.data_ptr(),
-                  _INT_BITS[targets.dtype], r, pos.data_ptr(),
-                  contains.data_ptr(), stream)
+        code = fn(values.data_ptr(), _VALUE_BITS[values.dtype], n,
+                  lo.data_ptr(), hi.data_ptr(), targets.data_ptr(), r,
+                  pos.data_ptr(), contains.data_ptr(), stream)
     _build.check("run_probe", code)
     _build.LAUNCHES["run_probe"] += 1
     return pos, contains

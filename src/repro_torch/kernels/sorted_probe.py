@@ -23,8 +23,6 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_INT_BITS = {torch.int32: 32, torch.int64: 64}
-
 
 def sorted_probe_plain(keys: torch.Tensor, queries: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -36,8 +34,8 @@ def sorted_probe_plain(keys: torch.Tensor, queries: torch.Tensor
 def _entry():
     fn = _build.library("sorted_probe").sorted_probe_launch
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, ll, p, i, ll, p, p, p, p]
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, ll, p, ll, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -45,15 +43,15 @@ def _entry():
 def sorted_probe_cuda(keys: torch.Tensor, queries: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA sorted probe on ``keys`` (sorted ascending) and
-    ``queries``: contiguous 1-D int32/int64 tensors on one CUDA device,
+    ``queries``: contiguous 1-D int64 tensors on one CUDA device,
     with fewer than 2^31 keys.  Raises on anything else, on a failed build
     and on a failed launch."""
     for name, t in (("keys", keys), ("queries", queries)):
         if not t.is_cuda or t.device != keys.device:
             raise ValueError(f"{name} must be on the keys' CUDA device, "
                              f"got {t.device}")
-        if t.dtype not in _INT_BITS or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D int32/int64 "
+        if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int64 "
                              f"tensor, got {t.dtype} {tuple(t.shape)}")
     n, q = keys.shape[0], queries.shape[0]
     if n >= 2**31:
@@ -67,8 +65,7 @@ def sorted_probe_cuda(keys: torch.Tensor, queries: torch.Tensor
     fn = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(keys.data_ptr(), _INT_BITS[keys.dtype], n,
-                  queries.data_ptr(), _INT_BITS[queries.dtype], q,
+        code = fn(keys.data_ptr(), n, queries.data_ptr(), q,
                   rank_lo.data_ptr(), rank_hi.data_ptr(), contains.data_ptr(),
                   stream)
     _build.check("sorted_probe", code)

@@ -14,7 +14,6 @@ from __future__ import annotations
 from repro_torch.obs.registry import (  # noqa: F401  (re-exported API)
     MetricsRegistry,
     RegistryView,
-    Snapshot,
 )
 
 #: Module-level switch for the instrumentation hooks.
@@ -25,6 +24,6 @@ enabled: bool = False
 registry = MetricsRegistry()
 
 
-def snapshot() -> Snapshot:
+def snapshot() -> dict:
     """Plain-dict snapshot of the global observability registry."""
     return registry.snapshot()

@@ -1,4 +1,4 @@
-"""Metrics registry: named counters/gauges + bucketed histograms.
+"""Metrics registry: named counters/gauges + running histograms.
 
 One flat namespace of instruments, snapshot-able as a plain dict.  Two
 instrument kinds:
@@ -6,112 +6,29 @@ instrument kinds:
 - **scalars** — counters and gauges are both just named numeric cells
   (``inc`` / ``set_value`` / ``value``); the distinction is usage, not
   representation.
-- **histograms** — geometric buckets (``observe``), with p50/p95/p99
-  extracted from the bucket counts.  Bucket width is ~9% (base
-  ``2**0.125``), so a reported quantile is within ~4.5% of the true
-  value — far below run-to-run wall-clock noise.
+- **histograms** — ``observe`` keeps count, sum, min and max; the
+  snapshot reports them with the mean.  Quantiles and interval diffs are
+  not part of this package yet.
 
-``snapshot()`` returns a ``Snapshot`` (a dict subclass): scalar entries
-are numbers, histogram entries are summary dicts carrying their bucket
-counts.  ``snap_b - snap_a`` diffs scalars and bucket counts and
-re-derives the interval's quantiles — the seam that replaces every
-hand-subtracted before/after counter read in ``benchlib`` and the BENCH
-figures.
+``RegistryView`` is a stats facade whose class-declared ``_FIELDS``
+become read/write properties over ``<prefix>.<field>`` instruments, so
+``stats.hits += 1`` call sites (and dataclass-style reprs and equality)
+work while the registry stays the single source of truth.
+``PlannerStats`` is the view the serial path uses.
 
-``RegistryView`` is the backward-compatibility bridge: a stats facade
-whose class-declared ``_FIELDS`` become read/write properties over
-``<prefix>.<field>`` instruments, so existing ``stats.hits += 1`` call
-sites (and dataclass-style constructors/reprs) keep working while the
-registry stays the single source of truth.  ``SchedMetrics``,
-``CacheStats`` and ``PlannerStats`` are the three views.
-
-This module is dependency-free (no jax, no numpy) so importing it from
+This module is dependency-free (no torch, no numpy) so importing it from
 the core modules costs nothing.
 """
 
 from __future__ import annotations
 
-import math
-
-# geometric bucket base: 2**(1/8) per bucket (~9% wide)
-_BASE_LOG = math.log(2.0) / 8.0
-# bucket index for non-positive observations (deltas of 0, clamped walls)
-_ZERO_BUCKET = -(1 << 30)
-
-
-def _bucket_index(v: float) -> int:
-    if v <= 0.0:
-        return _ZERO_BUCKET
-    return math.ceil(math.log(v) / _BASE_LOG - 1e-9)
-
-
-def _bucket_edge(idx: int) -> float:
-    """Upper edge of bucket ``idx`` — the value a quantile reports."""
-    if idx == _ZERO_BUCKET:
-        return 0.0
-    return math.exp(idx * _BASE_LOG)
-
-
-def _bucket_floor(idx: int) -> float:
-    """Lower edge of bucket ``idx`` — no observation in it is smaller."""
-    if idx == _ZERO_BUCKET:
-        return 0.0
-    return math.exp((idx - 1) * _BASE_LOG)
-
-
-def _quantile(buckets: dict, count: int, q: float) -> float:
-    """q-quantile of a bucket-count dict (upper-edge convention)."""
-    if count <= 0:
-        return 0.0
-    target = max(1, math.ceil(q * count))
-    seen = 0
-    for idx in sorted(buckets):
-        seen += buckets[idx]
-        if seen >= target:
-            return _bucket_edge(idx)
-    return _bucket_edge(max(buckets))
-
-
-def _summarize(buckets: dict, count: int, total: float,
-               vmin: float | None = None,
-               vmax: float | None = None) -> dict:
-    # True extrema when the histogram tracked them; otherwise (interval
-    # diffs, where per-observation extrema are not recoverable from
-    # bucket counts) bound them by the lower edge of the lowest occupied
-    # bucket and the upper edge of the highest — every observation lies
-    # inside [min, max] either way.  The old code used the *upper* edge
-    # for both, so "min" exceeded every observed value.
-    lo = min(buckets) if buckets else _ZERO_BUCKET
-    hi = max(buckets) if buckets else _ZERO_BUCKET
-    # 1e-9 relative margin: exp(ceil(log v)) round-trips can land a hair
-    # inside the true edge, and a bound that excludes the value it was
-    # computed from is a lie
-    if vmin is None:
-        vmin = _bucket_floor(lo) * (1.0 - 1e-9) if count else 0.0
-    if vmax is None:
-        vmax = _bucket_edge(hi) * (1.0 + 1e-9) if count else 0.0
-    def _clamp(q: float) -> float:
-        return min(max(q, vmin), vmax) if count else q
-    return {
-        "count": count,
-        "sum": total,
-        "min": vmin,
-        "max": vmax,
-        "mean": total / count if count else 0.0,
-        "p50": _clamp(_quantile(buckets, count, 0.50)),
-        "p95": _clamp(_quantile(buckets, count, 0.95)),
-        "p99": _clamp(_quantile(buckets, count, 0.99)),
-        "buckets": dict(buckets),
-    }
-
 
 class _Histogram:
-    __slots__ = ("count", "total", "buckets", "vmin", "vmax")
+    __slots__ = ("count", "total", "vmin", "vmax")
 
     def __init__(self):
         self.count = 0
         self.total = 0.0
-        self.buckets: dict[int, int] = {}
         self.vmin: float | None = None
         self.vmax: float | None = None
 
@@ -123,55 +40,15 @@ class _Histogram:
             self.vmin = v
         if self.vmax is None or v > self.vmax:
             self.vmax = v
-        idx = _bucket_index(v)
-        self.buckets[idx] = self.buckets.get(idx, 0) + 1
-
-    def percentile(self, q: float) -> float:
-        return _quantile(self.buckets, self.count, q)
 
     def summary(self) -> dict:
-        return _summarize(self.buckets, self.count, self.total,
-                          self.vmin, self.vmax)
-
-
-class Snapshot(dict):
-    """Point-in-time plain-dict view of a registry.
-
-    Scalar instruments map to numbers, histograms to summary dicts (with
-    ``buckets`` included so interval quantiles stay derivable).
-    ``later - earlier`` returns the interval Snapshot: scalars
-    subtracted, histogram buckets diffed and quantiles recomputed.
-    Instruments absent from the baseline are treated as zero/empty.
-    """
-
-    def __sub__(self, base: dict) -> "Snapshot":
-        out = Snapshot()
-        for key, v in self.items():
-            b = base.get(key)
-            if isinstance(v, dict):
-                bb = b["buckets"] if isinstance(b, dict) else {}
-                buckets = {i: n - bb.get(i, 0)
-                           for i, n in v["buckets"].items()}
-                buckets = {i: n for i, n in buckets.items() if n > 0}
-                count = v["count"] - (b["count"] if isinstance(b, dict)
-                                      else 0)
-                total = v["sum"] - (b["sum"] if isinstance(b, dict) else 0.0)
-                if not (isinstance(b, dict) and b["count"]):
-                    # empty baseline: the interval IS the endpoint, so its
-                    # true extrema are exact; otherwise they are not
-                    # recoverable from bucket counts and _summarize bounds
-                    # them by the occupied bucket edges.
-                    out[key] = _summarize(buckets, count, total,
-                                          v["min"], v["max"])
-                else:
-                    out[key] = _summarize(buckets, count, total)
-            else:
-                out[key] = v - (b if isinstance(b, (int, float)) else 0)
-        return out
-
-    def scalar(self, name: str, default=0):
-        v = self.get(name, default)
-        return default if isinstance(v, dict) else v
+        return {
+            "count": self.count,
+            "sum": self.total,
+            "min": self.vmin if self.count else 0.0,
+            "max": self.vmax if self.count else 0.0,
+            "mean": self.total / self.count if self.count else 0.0,
+        }
 
 
 class MetricsRegistry:
@@ -198,31 +75,12 @@ class MetricsRegistry:
             h = self._hists[name] = _Histogram()
         h.observe(v)
 
-    def percentile(self, name: str, q: float) -> float:
-        h = self._hists.get(name)
-        return h.percentile(q) if h is not None else 0.0
-
-    # ----------------------------------------------------------- lifecycle
-    def snapshot(self) -> Snapshot:
-        snap = Snapshot()
-        for k, v in self._scalars.items():
-            snap[k] = v
+    def snapshot(self) -> dict:
+        """Scalars as numbers, histograms as summary dicts."""
+        snap: dict = dict(self._scalars)
         for k, h in self._hists.items():
             snap[k] = h.summary()
         return snap
-
-    def reset(self, prefix: str = "") -> None:
-        """Zero out instruments under ``prefix`` (all, when empty)."""
-        if not prefix:
-            self._scalars.clear()
-            self._hists.clear()
-            return
-        for d in (self._scalars, self._hists):
-            for k in [k for k in d if k.startswith(prefix)]:
-                del d[k]
-
-    def __len__(self) -> int:
-        return len(self._scalars) + len(self._hists)
 
 
 def _view_field(key: str):
@@ -239,12 +97,10 @@ class RegistryView:
     """Attribute-style stats facade over registry instruments.
 
     Subclasses declare ``_PREFIX`` and ``_FIELDS``; each field becomes a
-    read/write property over the ``<prefix>.<field>`` scalar, so the old
-    dataclass counters' ``stats.x += 1`` / ``stats.x`` call sites are
-    unchanged while the backing store is the registry.  Constructing a
-    view without a registry gives it a private one (the old "fresh stats
-    object" semantics); components that aggregate several views pass one
-    shared registry in.
+    read/write property over the ``<prefix>.<field>`` scalar, so
+    ``stats.x += 1`` / ``stats.x`` call sites read and write the registry.
+    Constructing a view without a registry gives it a private one;
+    components that aggregate several views pass one shared registry in.
     """
 
     _PREFIX = ""
@@ -258,10 +114,6 @@ class RegistryView:
 
     def __init__(self, registry: MetricsRegistry | None = None):
         self.registry = registry if registry is not None else MetricsRegistry()
-
-    def reset(self) -> None:
-        for f in self._FIELDS:
-            setattr(self, f, 0)
 
     def as_dict(self) -> dict:
         return {f: getattr(self, f) for f in self._FIELDS}
