@@ -14,11 +14,13 @@ order:
 2. **Degree oracle** — for cold plans, an upper bound on each unit's
    result rows from per-predicate degree statistics: the max subject
    out-degree and max object in-degree per predicate, derived from the
-   store's sorted key columns via ``kops.max_run_length_per_segment`` (a
-   few vectorized reductions on the planner's device, once per store
-   epoch).  Chained through the plan's branch cases it bounds every
-   intermediate table, so an oracle-sized run cannot overflow unless the
-   bound exceeds ``max_cap``.
+   store's sorted base key columns via
+   ``kops.max_run_length_per_segment`` (two reductions on the planner's
+   device, once per *base* epoch), plus the insert runs' maxima
+   (``TripleStore.max_ins_degrees``, delta-sized, once per epoch) under
+   a delta overlay.  Chained through the plan's branch cases it bounds
+   every intermediate table, so an oracle-sized run cannot overflow
+   unless the bound exceeds ``max_cap``.
 
 Byte-identity needs no ladder alignment: a non-overflowing evaluation's
 valid rows and cost account are independent of the capacity it ran at, so
@@ -26,9 +28,10 @@ valid rows and cost account are independent of the capacity it ran at, so
 results.  Planned capacities are therefore **snug**; only in-run overflow
 *growth* keeps the 4x factor (``rung``).
 
-This is the serial half of the JAX reference's planner: the delta-overlay
-degree terms and the sharded-step hints wait for the live store and the
-sharded lowering.
+This is the serial half of the JAX reference's planner: ``sync_epoch``
+sweeps every other epoch's marks (the carry-over of marks whose
+predicates a delta did not touch waits for the scheduler), and the
+sharded-step hints wait for the sharded lowering.
 """
 
 from __future__ import annotations
@@ -72,8 +75,9 @@ class CapacityPlanner:
     """Capacity oracle + high-water-mark memory.
 
     ``max_entries`` bounds the HWM map (LRU); degree statistics are
-    recomputed lazily per store epoch, on ``device`` (default ``"cuda"``;
-    the engine passes its own).
+    recomputed lazily — the base half per store base epoch, on ``device``
+    (default ``"cuda"``; the engine passes its own), the delta half per
+    store epoch on the host.
     """
 
     store: TripleStore
@@ -86,6 +90,9 @@ class CapacityPlanner:
     stats: PlannerStats = None
     _hwm: OrderedDict = field(default_factory=OrderedDict, repr=False)
     _deg_epoch: int = field(default=-1, repr=False)
+    _deg_base_epoch: int = field(default=-1, repr=False)
+    _base_ps: np.ndarray | None = field(default=None, repr=False)
+    _base_po: np.ndarray | None = field(default=None, repr=False)
     _max_ps: np.ndarray | None = field(default=None, repr=False)
     _max_po: np.ndarray | None = field(default=None, repr=False)
     _swept_epoch: int = field(default=0, repr=False)
@@ -120,11 +127,18 @@ class CapacityPlanner:
 
     # ------------------------------------------------------- degree oracle
     def _degree_stats(self) -> tuple[np.ndarray, np.ndarray]:
-        """(max subject out-degree, max object in-degree) per predicate:
-        two ``kops`` segment reductions over the store's key columns on
-        the planner's device, cached per store epoch."""
-        if self._deg_epoch != self.store.epoch or self._max_ps is None:
-            s = self.store
+        """(max subject out-degree, max object in-degree) per predicate.
+
+        The base half is two ``kops`` segment reductions over the base
+        key columns on the planner's device, cached per **base** epoch: a
+        delta epoch never re-reads the full store.  Under a delta overlay
+        a merged run is at most base max + insert max long (the two
+        interleave, tombstones only shrink runs), so the per-epoch half
+        adds the insert runs' per-predicate maxima
+        (``TripleStore.max_ins_degrees``, delta-sized host work).
+        """
+        s = self.store
+        if self._deg_base_epoch != s.base_epoch or self._base_ps is None:
             dev = s.device_arrays(resolve_device(self.device))
             n_seg = s.n_predicates + 1
             stats = []
@@ -132,7 +146,13 @@ class CapacityPlanner:
                 seg = torch.div(keys, s.radix, rounding_mode="floor")
                 stats.append(kops.max_run_length_per_segment(
                     keys, seg, n_seg).cpu().numpy())
-            self._max_ps, self._max_po = stats
+            self._base_ps, self._base_po = stats
+            self._deg_base_epoch = s.base_epoch
+            self._deg_epoch = -1  # the delta half follows the new base
+        if self._deg_epoch != s.epoch or self._max_ps is None:
+            ins_ps, ins_po = s.max_ins_degrees()
+            self._max_ps = self._base_ps + ins_ps
+            self._max_po = self._base_po + ins_po
             self._deg_epoch = s.epoch
         return self._max_ps, self._max_po
 
@@ -149,6 +169,8 @@ class CapacityPlanner:
             return 1  # probe_oconst / probe_ovar_bound: pure filters
         p = int(consts[branch.pred_ci])
         if kind == "pred":
+            # merged-exact predicate cardinality: the base run alone is
+            # no upper bound once the delta holds inserts
             return self.store.tp_cardinality(p)
         max_ps, max_po = self._degree_stats()
         table = max_ps if kind == "ps" else max_po

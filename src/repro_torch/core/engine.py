@@ -37,6 +37,11 @@ query at 4x capacity until it fits — which ``EngineConfig(
 capacity_planner=False)`` selects.  Both are byte-identical to the JAX
 reference's ``QueryEngine.run`` on the same store and queries.
 
+Live store: each run reads the store's device view afresh, so a query
+runs on the epoch current at its start, and ``logn`` / ``probe_ops``
+derive from ``n_triples``, the *logical* count under a delta overlay,
+which keeps the account equal to a rebuilt store's.
+
 Cost accounting: the TPF page path charges fragment location at
 ``kops.probe_op_cost`` (``2 * ceil(log2 n)`` bisection steps, the same on
 every device).

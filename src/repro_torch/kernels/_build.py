@@ -1,12 +1,13 @@
 """Build and load this package's CUDA kernels: nvcc -> shared library -> ctypes.
 
-Each ``csrc/<name>.cu`` holds one kernel behind a plain C entry point.  It
-is compiled on first use, from the sources in the checkout, into
+Each ``csrc/<name>.cu`` holds one kernel behind a plain C entry point; the
+``csrc/*.cuh`` headers hold device functions they share.  A kernel is
+compiled on first use, from the sources in the checkout, into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root (a
-directory ``.gitignore`` lists), where the hash covers the source and the
-compiler flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  ``build`` starts one ``nvcc`` per missing library, all
-together, and waits for them.  A missing ``nvcc``, a failed build or a
+directory ``.gitignore`` lists), where the hash covers the source, the
+shared headers and the compiler flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is.  ``build`` starts one ``nvcc`` per
+missing library, all together, and waits for them.  A missing ``nvcc``, a failed build or a
 failed launch raises; nothing here falls back to another path.
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
@@ -27,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-KERNELS = ("sorted_probe", "run_probe")
+KERNELS = ("sorted_probe", "run_probe", "delta_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,8 +53,10 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of kernel ``name`` is built, keyed by a hash of
-    its source and the compiler flags."""
+    its source, the shared headers and the compiler flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -22,88 +22,73 @@
 //
 // What the design does about that: one thread per query and 256 threads
 // per block keep enough independent searches in flight per SM to cover
-// the load latency; the two searches share their common prefix (they
-// only diverge at the first key equal to q, after which each finishes in
-// its own half), so a hit costs about log2 n + log2(run) loads rather
-// than 2 log2 n; keys are read through the read-only path (__ldg).
-// Keys and queries are int64, the only widths the engine probes with (the
+// the load latency; the two searches share their common prefix
+// (bisect::equal_range), so a hit costs about log2 n + log2(run) loads
+// rather than 2 log2 n; keys are read through the read-only path.
+//
+// Two width pairs, each with its callers: int64 keys x int64 queries (the
 // packed (p, s) / (p, o) key columns and the expansion's cumulative
-// degrees).
+// degrees) and int32 keys x int32 queries (the live store's tombstone
+// rank searches: int32 base positions against the int32 tombstone
+// columns, which are not widened per call).
 // Exact at every edge: n == 0, queries below the first or above the last
-// key, the int64 max query, and negative keys (UNBOUND rows probe p*R-1).
+// key, the dtype's max and min, and negative keys (UNBOUND rows probe
+// p*R-1).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bisect.cuh"
+
 namespace {
 
-__global__ void sorted_probe_kernel(const int64_t* __restrict__ keys, int n,
-                                    const int64_t* __restrict__ queries,
+template <typename K>
+__global__ void sorted_probe_kernel(const K* __restrict__ keys, int n,
+                                    const K* __restrict__ queries,
                                     long long q,
                                     int* __restrict__ rank_lo,
                                     int* __restrict__ rank_hi,
                                     uint8_t* __restrict__ contains) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= q) return;
-  const int64_t x = queries[i];
-  // Joint phase: the answer of both searches lies in [lo, hi].
-  int lo = 0, hi = n;
-  int ulo = 0, uhi = 0;
-  bool split = false;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    const int64_t v = __ldg(keys + mid);
-    if (v < x) {
-      lo = mid + 1;
-    } else if (v > x) {
-      hi = mid;
-    } else {
-      // keys[mid] == x: rank_lo lies in [lo, mid], rank_hi in [mid+1, hi]
-      ulo = mid + 1;
-      uhi = hi;
-      hi = mid;
-      split = true;
-      break;
-    }
-  }
-  if (!split) {
-    rank_lo[i] = lo;
-    rank_hi[i] = lo;
-    contains[i] = 0;
-    return;
-  }
-  while (lo < hi) {  // first index with keys[.] >= x
-    const int mid = lo + ((hi - lo) >> 1);
-    if (__ldg(keys + mid) < x) lo = mid + 1; else hi = mid;
-  }
-  while (ulo < uhi) {  // first index with keys[.] > x
-    const int mid = ulo + ((uhi - ulo) >> 1);
-    if (__ldg(keys + mid) <= x) ulo = mid + 1; else uhi = mid;
-  }
+  int lo, hi;
+  bisect::equal_range(keys, n, queries[i], lo, hi);
   rank_lo[i] = lo;
-  rank_hi[i] = ulo;
-  contains[i] = 1;
+  rank_hi[i] = hi;
+  contains[i] = lo < hi ? 1 : 0;
+}
+
+template <typename K>
+void launch(const void* keys, int n, const void* queries, long long q,
+            void* rank_lo, void* rank_hi, void* contains,
+            cudaStream_t stream) {
+  const int threads = 256;
+  const long long blocks = (q + threads - 1) / threads;
+  sorted_probe_kernel<K><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const K*>(keys), n, static_cast<const K*>(queries), q,
+      static_cast<int*>(rank_lo), static_cast<int*>(rank_hi),
+      static_cast<uint8_t*>(contains));
 }
 
 }  // namespace
 
 extern "C" {
 
-// keys: int64 [n], sorted ascending; queries: int64 [q];
-// outputs int32 [q], int32 [q], uint8 [q].
+// keys: [n] sorted ascending, queries: [q], both int64 (key_bits 64) or
+// both int32 (key_bits 32); outputs int32 [q], int32 [q], uint8 [q].
 // Returns cudaGetLastError() after the launch (0 on success).
-int sorted_probe_launch(const void* keys, long long n, const void* queries,
-                        long long q, void* rank_lo, void* rank_hi,
-                        void* contains, void* stream) {
+int sorted_probe_launch(const void* keys, int key_bits, long long n,
+                        const void* queries, long long q, void* rank_lo,
+                        void* rank_hi, void* contains, void* stream) {
   if (n < 0 || n > 0x7fffffffLL || q < 0) return (int)cudaErrorInvalidValue;
   if (q == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (q + threads - 1) / threads;
-  sorted_probe_kernel<<<(unsigned)blocks, threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(keys), (int)n,
-      static_cast<const int64_t*>(queries), q, static_cast<int*>(rank_lo),
-      static_cast<int*>(rank_hi), static_cast<uint8_t*>(contains));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (key_bits == 64)
+    launch<int64_t>(keys, (int)n, queries, q, rank_lo, rank_hi, contains, s);
+  else if (key_bits == 32)
+    launch<int32_t>(keys, (int)n, queries, q, rank_lo, rank_hi, contains, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

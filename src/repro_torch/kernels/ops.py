@@ -11,12 +11,14 @@ launch the hand-written CUDA kernel, tensors on the CPU run the plain
 PyTorch version (``repro_torch.kernels.ref``).  Any other device raises.
 There is no override switch, no small-batch cutoff and no fallback: on
 the card a failed build or launch raises to the caller.  The kernels
-take the widths the engine probes with — int64 keys and queries, int32
-or int64 run values with int64 targets — and raise on any other.
+take the widths the engine probes with — int64 keys and queries (and
+int32 tombstone positions with int32 queries), int32 or int64 run values
+with int64 targets, int64 insert keys with int32 tombstone positions —
+and raise on any other.
 
 Launches are counted in ``LAUNCHES`` (``LAUNCHES["sorted_probe"]``,
-``LAUNCHES["run_probe"]``), one per kernel launch; the CPU path never
-touches them.
+``LAUNCHES["run_probe"]``, ``LAUNCHES["delta_probe"]``), one per kernel
+launch; the CPU path never touches them.
 
 Join/probe primitives (the SPF server's hot path)
 -------------------------------------------------
@@ -26,11 +28,16 @@ Join/probe primitives (the SPF server's hot path)
                             (the same kernel).
 - ``searchsorted``        — one-sided rank in one sorted array (the same
                             kernel; the ragged expansion's cumulative-
-                            degree bookkeeping in ``core/bindings.py``).
+                            degree bookkeeping in ``core/bindings.py``
+                            and the merged path's tombstone ranks).
 - ``run_probe``           — rank + membership of targets within per-row
                             sorted runs (the run-probe kernel).
 - ``run_contains``        — membership-only view of ``run_probe``.
 - ``searchsorted_in_runs`` — rank-only view of ``run_probe``.
+- ``delta_probe``         — the merged base+delta probe's delta half:
+                            insert-key equal range + tombstone ranks of
+                            the base run bounds, one pass (the delta-probe
+                            kernel).
 - ``max_run_length_per_segment`` — per-predicate max equal-key run
                             length (the capacity planner's degree oracle;
                             plain torch on every device — once per store
@@ -47,6 +54,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401  (re-exported)
+from repro_torch.kernels.delta_probe import delta_probe_cuda
 from repro_torch.kernels.run_probe import run_probe_cuda
 from repro_torch.kernels.sorted_probe import sorted_probe_cuda
 
@@ -119,6 +127,22 @@ def searchsorted_in_runs(values: torch.Tensor, lo: torch.Tensor,
     """Absolute "left" insertion position of ``targets[i]`` within the
     sorted run ``values[lo[i]:hi[i]]``."""
     return run_probe(values, lo, hi, targets)[0]
+
+
+def delta_probe(ins_keys: torch.Tensor, tomb_pos: torch.Tensor,
+                query_keys: torch.Tensor, base_lo: torch.Tensor,
+                base_hi: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """``(ins_lo, ins_hi, tomb_lo, tomb_hi)``: the equal range of each
+    probe key in the sorted insert keys, and the number of tombstoned
+    base positions strictly below each base run bound — the delta half of
+    every merged base+delta probe (int32 on both paths)."""
+    if _on_card(ins_keys):
+        return delta_probe_cuda(ins_keys, tomb_pos, query_keys, base_lo,
+                                base_hi)
+    return ref.delta_probe_ref(ins_keys, tomb_pos, query_keys, base_lo,
+                               base_hi)
 
 
 def probe_op_cost(n: int) -> int:

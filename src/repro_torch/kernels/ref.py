@@ -59,6 +59,26 @@ def rank_ref(sorted_keys: torch.Tensor, queries: torch.Tensor,
                               out_int32=True)
 
 
+def delta_probe_ref(ins_keys: torch.Tensor, tomb_pos: torch.Tensor,
+                    query_keys: torch.Tensor, base_lo: torch.Tensor,
+                    base_hi: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """The merged base+delta probe's delta half: the equal range of each
+    ``query_keys[i]`` in the sorted insert keys, and the tombstone ranks
+    of the base run bounds (tombstoned base positions strictly below
+    ``base_lo[i]`` / ``base_hi[i]``).  Four int32 tensors
+    ``(ins_lo, ins_hi, tomb_lo, tomb_hi)``.
+
+    Pure ``searchsorted``, which gathers nothing: an empty insert or
+    tombstone column gives zeros for its pair, and a query key equal to
+    the int64 max gets ``ins_hi == m`` (the Pallas wrapper's clamp)."""
+    ins_lo, ins_hi = eqrange_ref(ins_keys, query_keys)
+    tomb_lo = rank_ref(tomb_pos, base_lo, side="left")
+    tomb_hi = rank_ref(tomb_pos, base_hi, side="left")
+    return ins_lo, ins_hi, tomb_lo, tomb_hi
+
+
 def searchsorted_in_runs_ref(values: torch.Tensor, lo: torch.Tensor,
                              hi: torch.Tensor, targets: torch.Tensor,
                              side: str = "left") -> torch.Tensor:

@@ -12,7 +12,11 @@ ground truth.  Both return ``(rank_lo, rank_hi, contains)``:
     contains[i] = rank_lo[i] < rank_hi[i]
 
 int32, int32 and bool.  ``ops.eqrange``, ``ops.sorted_probe`` and
-``ops.searchsorted`` are three views of this one kernel.
+``ops.searchsorted`` are three views of this one kernel.  It takes two
+width pairs: int64 keys with int64 queries (the packed key columns and
+the expansion's cumulative degrees) and int32 keys with int32 queries
+(the live store's tombstone rank searches, base positions against the
+int32 tombstone columns).
 """
 
 from __future__ import annotations
@@ -31,11 +35,14 @@ def sorted_probe_plain(keys: torch.Tensor, queries: torch.Tensor
     return lo, hi, lo < hi
 
 
+_KEY_BITS = {torch.int64: 64, torch.int32: 32}
+
+
 def _entry():
     fn = _build.library("sorted_probe").sorted_probe_launch
     if fn.argtypes is None:
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, ll, p, p, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, i, ll, p, ll, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -43,16 +50,20 @@ def _entry():
 def sorted_probe_cuda(keys: torch.Tensor, queries: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA sorted probe on ``keys`` (sorted ascending) and
-    ``queries``: contiguous 1-D int64 tensors on one CUDA device,
-    with fewer than 2^31 keys.  Raises on anything else, on a failed build
-    and on a failed launch."""
+    ``queries``: contiguous 1-D tensors on one CUDA device, both int64 or
+    both int32, with fewer than 2^31 keys.  Raises on anything else, on a
+    failed build and on a failed launch."""
     for name, t in (("keys", keys), ("queries", queries)):
         if not t.is_cuda or t.device != keys.device:
             raise ValueError(f"{name} must be on the keys' CUDA device, "
                              f"got {t.device}")
-        if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D int64 "
-                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D tensor, "
+                             f"got shape {tuple(t.shape)}")
+    if keys.dtype != queries.dtype or keys.dtype not in _KEY_BITS:
+        raise ValueError(f"keys and queries must be int64 x int64 or "
+                         f"int32 x int32, got {keys.dtype} x "
+                         f"{queries.dtype}")
     n, q = keys.shape[0], queries.shape[0]
     if n >= 2**31:
         raise ValueError(f"sorted_probe takes fewer than 2^31 keys, got {n}")
@@ -65,9 +76,9 @@ def sorted_probe_cuda(keys: torch.Tensor, queries: torch.Tensor
     fn = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(keys.data_ptr(), n, queries.data_ptr(), q,
-                  rank_lo.data_ptr(), rank_hi.data_ptr(), contains.data_ptr(),
-                  stream)
+        code = fn(keys.data_ptr(), _KEY_BITS[keys.dtype], n,
+                  queries.data_ptr(), q, rank_lo.data_ptr(),
+                  rank_hi.data_ptr(), contains.data_ptr(), stream)
     _build.check("sorted_probe", code)
     _build.LAUNCHES["sorted_probe"] += 1
     return rank_lo, rank_hi, contains

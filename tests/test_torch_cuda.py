@@ -1,5 +1,5 @@
-"""The CUDA kernels and the engine on the card, held against the port's
-own plain CPU path (exact).  Every test here needs an NVIDIA GPU: it
+"""The CUDA kernels and the engine on the card (over a static store and a
+live one), held against the port's own plain CPU path (exact).  Every test here needs an NVIDIA GPU: it
 carries the ``cuda`` marker and skips where there is none.
 
 This file imports only torch, numpy and ``repro_torch``, so it runs on a
@@ -16,12 +16,14 @@ from _torch import cuda_device, torch  # noqa: F401  (cuda_device: fixture)
 from repro_torch.core import INTERFACES, EngineConfig, QueryEngine, \
     results_as_numpy
 from repro_torch.kernels import ops
+from repro_torch.kernels.delta_probe import delta_probe_cuda, delta_probe_plain
 from repro_torch.kernels.run_probe import run_probe_cuda, run_probe_plain
 from repro_torch.kernels.sorted_probe import (sorted_probe_cuda,
                                               sorted_probe_plain)
 from repro_torch.rdf import (QueryLoadConfig, TripleStore, WatDivConfig,
                              generate_query_load, generate_watdiv)
 from repro_torch.rdf.queries import QUERY_LOADS
+from repro_torch.rdf.writes import WriteFeed
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +76,50 @@ def test_run_probe_kernel_matches_plain(cuda_device, n, r, vdt):
         np.testing.assert_array_equal(_np(g), _np(w))
 
 
+@pytest.mark.parametrize("n,q", [(1000, 77), (1, 5), (0, 9), (150_000, 4096)])
+def test_sorted_probe_int32_kernel_matches_plain(cuda_device, n, q):
+    """The int32 x int32 instantiation on tombstone-like columns."""
+    rng = np.random.default_rng(n + 5 * q)
+    n_base = 3 * n + 10
+    keys = np.sort(rng.choice(n_base, n, replace=False)).astype(np.int32)
+    queries = rng.integers(0, n_base + 1, q).astype(np.int32)
+    queries[:2] = [np.iinfo(np.int32).max, np.iinfo(np.int32).min]
+    got = sorted_probe_cuda(_t(keys, cuda_device), _t(queries, cuda_device))
+    torch.cuda.synchronize()
+    want = sorted_probe_plain(_t(keys), _t(queries))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.is_cuda
+        np.testing.assert_array_equal(_np(g), _np(w))
+
+
+@pytest.mark.parametrize("m,t,q", [
+    (64, 32, 128), (1000, 700, 513), (0, 40, 100), (50, 0, 100), (0, 0, 17),
+    (30, 20, 0), (150_000, 150_000, 1 << 16),
+])
+def test_delta_probe_kernel_matches_plain(cuda_device, m, t, q):
+    rng = np.random.default_rng(m + 3 * t + q)
+    n_base = max(2 * t, 10)
+    ins = np.sort(rng.integers(-(1 << 40), 1 << 40, m)).astype(np.int64)
+    tomb = np.sort(rng.choice(n_base, t, replace=False)).astype(np.int32)
+    qk = rng.integers(-(1 << 40), 1 << 40, q).astype(np.int64)
+    if m and q:
+        qk[:q // 2] = ins[rng.integers(0, m, q // 2)]
+    lo = rng.integers(0, n_base + 1, q).astype(np.int32)
+    hi = np.minimum(n_base, lo + rng.integers(0, n_base, q)).astype(np.int32)
+    if q >= 3:
+        qk[:3] = [np.iinfo(np.int64).max, np.iinfo(np.int64).min, 0]
+        lo[:3] = hi[:3] = [n_base, 0, 5]
+    args = (ins, tomb, qk, lo, hi)
+    before = ops.LAUNCHES["delta_probe"]
+    got = delta_probe_cuda(*(_t(a, cuda_device) for a in args))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["delta_probe"] == before + (1 if q else 0)
+    want = delta_probe_plain(*(_t(a) for a in args))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.is_cuda
+        np.testing.assert_array_equal(_np(g), _np(w))
+
+
 def test_kernel_wrappers_validate_inputs(cuda_device):
     k = torch.arange(8, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -84,6 +130,17 @@ def test_kernel_wrappers_validate_inputs(cuda_device):
         sorted_probe_cuda(k.to(torch.int32), k)
     with pytest.raises(ValueError, match="int64"):
         sorted_probe_cuda(k, k.to(torch.int32))
+    with pytest.raises(ValueError, match="int32 x int32"):
+        sorted_probe_cuda(k.to(torch.int16), k.to(torch.int16))
+    b = k.to(torch.int32)
+    with pytest.raises(ValueError, match="tomb_pos must be torch.int32"):
+        delta_probe_cuda(k, k, k, b, b)
+    with pytest.raises(ValueError, match="query_keys must be torch.int64"):
+        delta_probe_cuda(k, b, b, b, b)
+    with pytest.raises(ValueError, match="base_hi has 4 entries"):
+        delta_probe_cuda(k, b, k, b, b[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        delta_probe_cuda(k[::2], b, k, b, b)
     with pytest.raises(ValueError, match="CUDA device"):
         sorted_probe_cuda(k, k.cpu())
     lo = torch.zeros(8, dtype=torch.int64, device=cuda_device)
@@ -128,3 +185,34 @@ def test_engine_on_card_matches_cpu(cuda_device, small_world, interface,
                 tuple(int(x) for x in s_host)[:6], load
     assert ops.LAUNCHES["sorted_probe"] > 0
     assert ops.LAUNCHES["run_probe"] > 0
+
+
+def test_live_engine_on_card_matches_cpu(cuda_device):
+    """A scale-10 store under three seeded write windows: every load's
+    queries on the card through the merged path equal the CPU run."""
+    g = generate_watdiv(WatDivConfig(scale=10))
+    store = TripleStore.build(g.s, g.p, g.o, n_terms=g.n_terms,
+                              n_predicates=g.n_predicates)
+    loads = {load: generate_query_load(g, store, load,
+                                       QueryLoadConfig(n_queries=2))
+             for load in QUERY_LOADS}
+    read = {t.p.id for qs in loads.values() for q in qs for t in q.patterns
+            if not t.p.is_var}
+    feed = WriteFeed(store, read, rate=0.03, seed=1)
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    for _ in range(3):
+        store.apply_delta(**feed.next_window())
+        for interface in INTERFACES:
+            cfg = EngineConfig(interface=interface, cap=256)
+            card = QueryEngine(store, cfg)
+            host = QueryEngine(store, cfg, device="cpu")
+            for load, qs in loads.items():
+                for q in qs:
+                    t_card, s_card = card.run(q)
+                    t_host, s_host = host.run(q)
+                    assert np.array_equal(results_as_numpy(t_card),
+                                          results_as_numpy(t_host)), load
+                    assert tuple(int(x) for x in s_card)[:6] == \
+                        tuple(int(x) for x in s_host)[:6], load
+    assert min(ops.LAUNCHES.values()) > 0

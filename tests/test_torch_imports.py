@@ -46,7 +46,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert set(seen["launches"].values()) == {0}
     expected = {"repro_torch.core.engine", "repro_torch.kernels.ops",
                 "repro_torch.kernels.sorted_probe",
-                "repro_torch.kernels.run_probe", "repro_torch.rdf.store",
+                "repro_torch.kernels.run_probe",
+                "repro_torch.kernels.delta_probe", "repro_torch.rdf.store",
+                "repro_torch.rdf.writes",
                 "repro_torch.obs.registry"}
     assert expected <= set(seen["modules"])
 

@@ -13,10 +13,12 @@ from _torch import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as jref
+from repro.kernels.delta_probe import delta_probe_pallas
 from repro.kernels.run_probe import (run_probe_pallas,
                                      run_probe_prefetch_pallas)
 from repro.kernels.sorted_probe import sorted_probe_pallas
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.delta_probe import delta_probe_cuda, delta_probe_plain
 from repro_torch.kernels.run_probe import run_probe_cuda, run_probe_plain
 from repro_torch.kernels.sorted_probe import (sorted_probe_cuda,
                                               sorted_probe_plain)
@@ -221,6 +223,94 @@ def test_run_probe_empty_values():
     assert not _np(c).any()
 
 
+# --------------------------------------------------------------- delta_probe
+
+I64_MIN = np.iinfo(np.int64).min
+
+
+def _check_delta_probe_cpu(ins, tomb, qk, lo, hi):
+    """The port's plain delta probe (and ``ops.delta_probe`` on the CPU)
+    against the reference's Pallas kernel (interpret mode), its jnp
+    oracle and its numpy twin."""
+    want = jref.delta_probe_np(ins, tomb, qk, lo, hi)
+    j = [jnp.asarray(a) for a in (ins, tomb, qk, lo, hi)]
+    others = [jref.delta_probe_ref(*j)]
+    if qk.shape[0]:  # the reference's Pallas wrapper takes no empty batch
+        others.append(delta_probe_pallas(*j, interpret=True))
+    t = [_t(a) for a in (ins, tomb, qk, lo, hi)]
+    for got in (delta_probe_plain(*t), ops.delta_probe(*t)):
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and g.shape == w.shape
+            np.testing.assert_array_equal(_np(g), w)
+    for other in others:
+        for o, w in zip(other, want):
+            np.testing.assert_array_equal(np.asarray(o), w)
+
+
+def _delta_inputs(rng, m, t, q, n_base):
+    ins = np.sort(rng.integers(0, 1 << 40, m)).astype(np.int64)
+    tomb = np.sort(rng.choice(n_base, t, replace=False)).astype(np.int32)
+    qk = rng.integers(0, 1 << 40, q).astype(np.int64)
+    if m and q:
+        qk[:q // 2] = ins[rng.integers(0, m, q // 2)]  # exact hits
+    lo = rng.integers(0, n_base + 1, q).astype(np.int32)
+    hi = np.minimum(n_base, lo + rng.integers(0, n_base // 2 + 1, q)
+                    ).astype(np.int32)
+    if q >= 4:
+        qk[:4] = [I64_MAX, I64_MIN, -1, 0]
+        lo[:4] = [0, n_base, 7, n_base]  # base_lo == base_hi, == n_base
+        hi[:4] = [0, n_base, 7, n_base]
+    return ins, tomb, qk, lo, hi
+
+
+@pytest.mark.parametrize("m,t,q", [
+    (64, 32, 128), (1000, 700, 513), (1, 1, 9), (0, 40, 100), (50, 0, 100),
+    (0, 0, 17), (30, 20, 0), (2048, 2048, 2049),
+])
+def test_delta_probe_matches_reference(m, t, q):
+    rng = np.random.default_rng(m * 31 + t * 7 + q)
+    _check_delta_probe_cpu(*_delta_inputs(rng, m, t, q, n_base=5000))
+
+
+def test_delta_probe_duplicate_insert_keys_and_extremes():
+    """Runs of equal insert keys (one (p, s) with many inserted objects),
+    the int64 extremes among the keys and queries, and tombstones at
+    positions 0 and n_base - 1."""
+    n_base = 100
+    ins = np.array([I64_MIN, -5, 3, 3, 3, 8, 8, I64_MAX], np.int64)
+    tomb = np.array([0, 1, 50, n_base - 1], np.int32)
+    qk = np.array([I64_MIN, -5, 3, 4, 8, I64_MAX, I64_MAX - 1, 9], np.int64)
+    lo = np.array([0, 0, 1, 2, 50, 99, n_base, 51], np.int32)
+    hi = np.array([0, 1, 2, 50, 51, n_base, n_base, 99], np.int32)
+    _check_delta_probe_cpu(ins, tomb, qk, lo, hi)
+
+
+@pytest.mark.parametrize("n,q", [(1000, 300), (1, 5), (2, 8), (4096, 700)])
+def test_int32_tombstone_ranks_match_reference(n, q):
+    """int32 base positions against an int32 tombstone column — the three
+    rank searches of the merged path (``searchsorted`` right over the
+    ``adj`` column, left over the positions, ``sorted_probe``) — against
+    the reference's kernel and oracles."""
+    rng = np.random.default_rng(n + q)
+    n_base = 3 * n + 10
+    pos = np.sort(rng.choice(n_base, n, replace=False)).astype(np.int32)
+    adj = (pos - np.arange(n, dtype=np.int32)).astype(np.int32)
+    queries = rng.integers(0, n_base + 1, q).astype(np.int32)
+    if n and q >= 3:
+        queries[:3] = [pos[0], pos[-1], n_base]
+    _check_sorted_probe_cpu(pos, queries)
+    _check_sorted_probe_cpu(adj, queries)
+    # no tombstones: every rank 0, as the reference's jnp oracles give
+    # (its Pallas kernel takes no empty column)
+    empty = np.zeros(0, np.int32)
+    for side in ("left", "right"):
+        got = ops.searchsorted(_t(empty), _t(queries), side=side)
+        np.testing.assert_array_equal(_np(got), np.asarray(jref.rank_ref(
+            jnp.asarray(empty), jnp.asarray(queries), side)))
+    rank, contains = ops.sorted_probe(_t(empty), _t(queries))
+    assert not _np(rank).any() and not _np(contains).any()
+
+
 # ------------------------------------------------------- the rest of the seam
 
 def test_max_run_length_per_segment_matches_reference(watdiv_small):
@@ -251,6 +341,9 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
     ops.searchsorted(keys, keys, side="right")
     ops.run_probe(keys.to(torch.int32), _t(np.zeros(10, np.int32)),
                   _t(np.full(10, 10, np.int32)), keys)
+    bounds = _t(np.zeros(10, np.int32))
+    ops.delta_probe(keys, bounds, keys, bounds, bounds)
+    ops.sorted_probe(bounds, bounds)
     assert ops.LAUNCHES == before
 
 
@@ -260,6 +353,8 @@ def test_other_devices_raise():
         ops.eqrange(keys, keys)
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ops.run_probe(keys, keys, keys, keys)
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ops.delta_probe(keys, keys, keys, keys, keys)
     with pytest.raises(ValueError, match="side"):
         ops.searchsorted(keys, keys, side="middle")
 
@@ -270,6 +365,9 @@ def test_kernel_wrappers_reject_cpu_tensors():
         sorted_probe_cuda(k, k)
     with pytest.raises(ValueError, match="CUDA device"):
         run_probe_cuda(k, k.to(torch.int32), k.to(torch.int32), k)
+    b = k.to(torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        delta_probe_cuda(k, b, k, b, b)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -285,6 +383,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_key_follows_the_source(monkeypatch, tmp_path):
     for name in _build.KERNELS:
         shutil.copy(_build.CSRC / f"{name}.cu", tmp_path / f"{name}.cu")
+    shutil.copy(_build.CSRC / "bisect.cuh", tmp_path / "bisect.cuh")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = _build.library_path("run_probe")
     assert before.parent == _build.BUILD_DIR and before.suffix == ".so"
@@ -293,3 +392,8 @@ def test_build_key_follows_the_source(monkeypatch, tmp_path):
         f.write("\n// edited\n")
     assert _build.library_path("run_probe") != before
     assert _build.library_path("sorted_probe").name.startswith("sorted_probe-")
+    # the shared bisection header is part of every kernel's key
+    before = _build.library_path("delta_probe")
+    with open(tmp_path / "bisect.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert _build.library_path("delta_probe") != before
