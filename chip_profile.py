@@ -10,7 +10,10 @@ from the live store's merged triples, which answers the same.  For each
 it runs every query under the four interfaces on the card (planner on)
 once, to fill the planner's high-water marks, times one warm pass over
 all of them untraced (host wall clock, synchronised), and traces a
-second warm pass with ``torch.profiler``.  It prints, per store:
+second warm pass with ``torch.profiler``.  On the static store it also
+profiles ``chip_smoke.py``'s serving stream (240 requests from 16
+clients) through the scheduler: a cold drain, a warm drain, and the
+stream with the cache and collapsing off.  It prints, per pass:
 
 - the untraced and traced pass walls, the device's busy time in the
   traced pass (the sum of every kernel, copy and fill CUPTI recorded; one
@@ -66,18 +69,10 @@ def main() -> int:
     loads = smoke.query_loads(g, store)
     cuda = torch.device("cuda", 0)
 
-    def profile_pass(label, store) -> bool:
-        engines = [core.QueryEngine(store, core.EngineConfig(interface=i),
-                                    device=cuda) for i in core.INTERFACES]
-        work = [(eng, q) for eng in engines for qs in loads.values()
-                for q in qs]
-
-        def run_all():
-            for eng, q in work:
-                eng.run(q)
-            torch.cuda.synchronize()
-
-        run_all()  # cold: fills the planners' high-water marks
+    def trace(label, what, run_all, n_q) -> bool:
+        """Run ``run_all`` once (warm-up), once timed, once traced, and
+        print where the traced pass's time went; ``n_q`` queries each."""
+        run_all()
         t0 = time.perf_counter()
         run_all()
         untraced = time.perf_counter() - t0
@@ -94,12 +89,8 @@ def main() -> int:
             print(f"chip_profile: the {label} trace holds no device time",
                   file=sys.stderr)
             return False
-        n_q = len(work)
         items = sum(e.count for e in device)
-        print(f"== {label} store: {store.n_triples} triples, delta "
-              f"{store.delta_size}; warm pass over {n_q} queries "
-              f"({len(engines)} interfaces x "
-              f"{sum(map(len, loads.values()))} queries, planner on)")
+        print(f"== {label}: {what}")
         print(f"wall untraced {untraced * 1e3:.3f} ms "
               f"({untraced * 1e3 / n_q:.3f} ms/query), traced "
               f"{traced * 1e3:.3f} ms; device busy {busy_us / 1e3:.3f} ms "
@@ -125,7 +116,56 @@ def main() -> int:
                   f"{e.key[:90]}")
         return True
 
-    if not profile_pass("static", store):
+    def profile_pass(label, store) -> bool:
+        engines = [core.QueryEngine(store, core.EngineConfig(interface=i),
+                                    device=cuda) for i in core.INTERFACES]
+        work = [(eng, q) for eng in engines for qs in loads.values()
+                for q in qs]
+
+        def run_all():
+            for eng, q in work:
+                eng.run(q)
+            torch.cuda.synchronize()
+
+        run_all()  # cold: fills the planners' high-water marks
+        return trace(
+            f"{label} store", f"{store.n_triples} triples, delta "
+            f"{store.delta_size}; warm pass over {len(work)} queries "
+            f"({len(engines)} interfaces x "
+            f"{sum(map(len, loads.values()))} queries, planner on)",
+            run_all, len(work))
+
+    def serving_passes(store) -> bool:
+        """chip_smoke's serving stream (16 clients, SPF, lanes 8) through
+        the scheduler: a cold drain (a fresh scheduler each time), a warm
+        drain (one scheduler, drained twice before), and the stream with
+        the cache and collapsing off (a fresh scheduler each time)."""
+        queries = [q for qs in loads.values() for q in qs]
+        stream = core.interleave_clients(queries, smoke.CLIENTS)
+        cfg = core.EngineConfig()
+
+        def drain(scfg, sched=None):
+            def run_all():
+                s = sched or core.QueryScheduler(store, cfg, scfg,
+                                                 device=cuda)
+                s.serve(stream)
+                torch.cuda.synchronize()
+            return run_all
+
+        lanes = core.SchedulerConfig(lanes=smoke.LANES)
+        warm = core.QueryScheduler(store, cfg, lanes, device=cuda)
+        warm.serve(stream)
+        what = f"{len(stream)} requests, {len(queries)} distinct queries"
+        return (trace("serving cold", what + ", a fresh scheduler",
+                      drain(lanes), len(stream))
+                and trace("serving warm", what + ", one warm scheduler",
+                          drain(lanes, warm), len(stream))
+                and trace("serving, cache and collapsing off", what,
+                          drain(core.SchedulerConfig(
+                              lanes=smoke.LANES, use_cache=False,
+                              collapse_duplicates=False)), len(stream)))
+
+    if not profile_pass("static", store) or not serving_passes(store):
         return 1
     read_preds = {t.p.id for qs in loads.values() for q in qs
                   for t in q.patterns if not t.p.is_var}

@@ -1,19 +1,23 @@
 """Run the PyTorch port's SPF engine on one NVIDIA GPU and check it: over
-a static store, then over the live store under writes.
+a static store, over the live store under writes, then serving a
+16-client stream through the scheduler.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions.
-2. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together).
 3. Build the paper's 10M-triple WatDiv store (``scale=20_500``) and put
    its index on the card.
 4. Each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, bit-equal, with the kernel's, the plain
    version's and (for the sorted probe) ``torch.searchsorted``'s times,
-   and the least time the card could take.
+   and the least time the card could take.  The wave fingerprint and the
+   cache-hit replay run at the serving path's largest shapes (8 lanes of
+   2^20 rows), and are also held against their host twins
+   (``ref.fingerprint_prefix_np``, ``fragcache.replay``).
 5. The main path: five WatDiv loads x four interfaces, a few queries
    each, through ``QueryEngine.run`` on the card (planner on; one load
    also with the planner off), with the kernels' launch counts set to 0
@@ -37,6 +41,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    against their plain versions at the live shapes, and then
    ``compact()`` must give a base bit-equal to the rebuilt store's and
    the same answers.
+7. Serving, on the compacted store: the five loads' 15 queries
+   interleaved over 16 clients (240 requests, SPF, planner on, waves of
+   8 lanes) through one ``QueryScheduler`` on the card, drained three
+   times (cold, warm, warm again), with the launch counts set to 0 just
+   before the first drain and read after the second.  Every response's
+   rows, overflow and six stats must equal the serial
+   ``QueryEngine.run`` on the card; the second drain must replay units
+   (the replay kernel) and no all-hit wave may pull a table to the host
+   beyond an overflow retire.  Then the same stream with the cache and
+   collapsing off through ``QueryEngine.run_load``, TPF / brTPF /
+   endpoint with 4 clients, and a 1% write window submitted while the
+   stream is pending: every response equals the serial engine on the
+   post-write store (twice), cache entries and planner marks over
+   untouched predicates carry over, and no answer holds a tombstoned
+   triple.
 
 The line before the last is the kernel report as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Times are CUDA-event means over
@@ -64,6 +83,8 @@ SEED = 0
 HBM_BYTES_S = 3.35e12
 SCALAR_OPS_S = 67e12
 SECTOR_BYTES = 32
+CLIENTS = 16  # the serving phase's simulated clients
+LANES = 8  # the serving phase's wave width
 
 
 def check(ok: bool, what: str) -> None:
@@ -419,6 +440,300 @@ def live_phase(torch, np, core, store, loads, static, cuda):
     return entry, launches, walls
 
 
+def scheduler_kernel_phase(torch, np, cuda):
+    """The wave fingerprint and the cache-hit replay against their plain
+    versions and host twins on the card, at the serving path's largest
+    shapes (8 lanes of 2^20 rows); returns their report entries."""
+    from repro_torch.core import fragcache
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fingerprint import (fingerprint_rows_cuda,
+                                                 fingerprint_rows_plain)
+    from repro_torch.kernels.replay import (replay_delta_cuda,
+                                            replay_delta_plain)
+
+    rng = np.random.default_rng(SEED + 2)
+    i32 = np.iinfo(np.int32)
+    lanes, cap = LANES, PROBE_QUERIES
+
+    # ---- fingerprint: C = 3 read columns, int32 extremes and UNBOUND
+    n_cols = 3
+    blk = rng.integers(i32.min, i32.max, (lanes, cap, n_cols),
+                       dtype=np.int64, endpoint=True).astype(np.int32)
+    blk[:, :4, 0] = [-1, i32.min, i32.max, 0]
+    blk[:, ::97, 1] = -1
+    lens = [0, 1, 777, cap, -1, *rng.integers(2, cap, lanes - 5).tolist()]
+    mask = np.zeros((lanes, cap), bool)
+    for j, n in enumerate(lens):
+        mask[j, :max(n, 0)] = True
+    mask[4] = rng.random(cap) < 0.5  # not a prefix
+    block = torch.from_numpy(blk).to(cuda)
+    valid = torch.from_numpy(mask).to(cuda)
+    got = fingerprint_rows_cuda(block, valid)
+    want = fingerprint_rows_plain(block, valid)
+    torch.cuda.synchronize()
+    fp_err = max_abs_err(torch, [got], [want])
+    check(fp_err == 0, "fingerprint_rows kernel == plain at 8 x 2^20 rows")
+    digests = got.cpu().tolist()
+    for j, n in enumerate(lens):
+        if n >= 0:
+            check(tuple(digests[j]) == ref.fingerprint_prefix_np(blk[j, :n]),
+                  f"fingerprint_rows kernel == host twin, prefix {n}")
+    empty = block[:, :, :0].contiguous()
+    check(max_abs_err(torch, [fingerprint_rows_cuda(empty, valid)],
+                      [fingerprint_rows_plain(empty, valid)]) == 0,
+          "fingerprint_rows kernel == plain on a zero-column block")
+    fp_ms = cuda_ms(torch, lambda: fingerprint_rows_cuda(block, valid))
+    fp_plain = cuda_ms(torch, lambda: fingerprint_rows_plain(block, valid))
+    n_valid = int(mask.sum())
+    # bytes: every value and validity byte once, the digests out; ops: the
+    # hash of a valid row (10 per column, 18 for the position, 40 for the
+    # four salted terms and sums)
+    fp_bound, fp_by = bound(lanes * cap * (n_cols * 4 + 1) + lanes * 16,
+                            n_valid * (10 * n_cols + 58))
+    print(f"fingerprint_rows: {lanes} lanes x {cap} rows x {n_cols} cols, "
+          f"{n_valid} valid (prefixes {lens[:4]} + random, one non-prefix "
+          f"mask), max_abs_err {fp_err}, equal to the host twin; kernel "
+          f"{fp_ms:.4f} ms, plain {fp_plain:.4f} ms, bound {fp_bound:.4f} ms "
+          f"({fp_by}); library: none (no PyTorch call computes this hash)")
+
+    # ---- replay: V = 6 columns, W = 2 written, M = cap source rows
+    n_vars, write_cols = 6, (4, 1)
+    seed_np = rng.integers(-1, 1 << 30, (lanes, cap, n_vars)).astype(np.int32)
+    src_np = rng.integers(0, cap, (lanes, cap)).astype(np.int32)
+    wr_np = rng.integers(0, 1 << 30, (lanes, cap, len(write_cols))
+                         ).astype(np.int32)
+    n_out_np = np.array([0, 1, cap, *rng.integers(2, cap, lanes - 3)],
+                        np.int32)
+    seed, src, written, n_out = (torch.from_numpy(a).to(cuda) for a in (
+        seed_np, src_np, wr_np, n_out_np))
+    args = (seed, src, written, n_out, write_cols)
+    got = replay_delta_cuda(*args)
+    want = replay_delta_plain(*args)
+    torch.cuda.synchronize()
+    rp_err = max_abs_err(torch, got, want)
+    check(rp_err == 0, "replay_delta kernel == plain at 8 x 2^20 rows")
+    j = 3
+    k = int(n_out_np[j])
+    rows, vmask = fragcache.replay(
+        fragcache.FragmentEntry(src_np[j, :k], wr_np[j, :k], False, 0),
+        seed_np[j], cap, n_vars, write_cols)
+    check(np.array_equal(got[0][j].cpu().numpy(), rows)
+          and np.array_equal(got[1][j].cpu().numpy(), vmask),
+          "replay_delta kernel == fragcache.replay on one lane")
+    rp_ms = cuda_ms(torch, lambda: replay_delta_cuda(*args))
+    rp_plain = cuda_ms(torch, lambda: replay_delta_plain(*args))
+    lane_idx = torch.arange(lanes, device=cuda)[:, None]
+    rp_lib = cuda_ms(torch, lambda: seed[lane_idx, src])
+    live = int(np.minimum(n_out_np, cap).sum())
+    n_w = len(write_cols)
+    # bytes: each live row's source index, written values and read
+    # columns of its seed row once, the counts, and the whole output
+    rp_bound, rp_by = bound(live * 4 * (1 + n_w + n_vars - n_w) + lanes * 4
+                            + lanes * cap * (n_vars * 4 + 1), 0)
+    print(f"replay_delta: {lanes} lanes x {cap} rows x {n_vars} cols, "
+          f"{n_w} written, M={cap}, n_out {n_out_np.tolist()}, max_abs_err "
+          f"{rp_err}, lane {j} equal to fragcache.replay; kernel "
+          f"{rp_ms:.4f} ms, plain {rp_plain:.4f} ms, bound {rp_bound:.4f} ms "
+          f"({rp_by}); library: the gather seed[lane, src] alone "
+          f"{rp_lib:.4f} ms (a lower bound on the row gather, not the "
+          f"replay; the port never calls it)")
+    return [
+        {"name": "fingerprint_rows", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fingerprint.cu",
+         "replaces": "src/repro/kernels/fingerprint.py:99",
+         "launches": 0, "max_abs_err": fp_err, "ms": fp_ms,
+         "plain_ms": fp_plain, "bound_ms": fp_bound, "bound_by": fp_by,
+         "library_ms": None},
+        {"name": "replay_delta", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/replay.cu",
+         "replaces": "src/repro/kernels/replay.py:100",
+         "launches": 0, "max_abs_err": rp_err, "ms": rp_ms,
+         "plain_ms": rp_plain, "bound_ms": rp_bound, "bound_by": rp_by,
+         "library_ms": rp_lib},
+    ]
+
+
+def serving_phase(torch, np, core, store, loads, cuda):
+    """Module docstring phase 7: the scheduler on the card under a
+    16-client stream, held against the serial engine; returns the launch
+    counts of drains 1 and 2 (the serving path)."""
+    from repro_torch.kernels import ops
+    from repro_torch.rdf.writes import WriteFeed
+
+    class Logged(core.QueryScheduler):
+        """Records each wave's (steps, host pulls, retries) deltas."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.wave_log = []
+
+        def _run_wave(self, jobs, results):
+            m = self.metrics
+            before = (m.steps, m.host_block_pulls, m.retries)
+            out = super()._run_wave(jobs, results)
+            self.wave_log.append((m.steps - before[0],
+                                  m.host_block_pulls - before[1],
+                                  m.retries - before[2]))
+            return out
+
+    def sync():
+        torch.cuda.synchronize()
+
+    queries = [q for qs in loads.values() for q in qs]
+    stream = core.interleave_clients(queries, CLIENTS)
+    cfg = core.EngineConfig()
+
+    def serial_answers(engine_cfg):
+        eng = core.QueryEngine(store, engine_cfg, device=cuda)
+        return eng, {q: outcome(core, *eng.run(q)) for q in queries}
+
+    def hold(reqs, served, want, what):
+        check(len(served) == len(reqs), f"{what}: every request answered")
+        for i, ((_, q), (tbl, stats)) in enumerate(zip(reqs, served)):
+            check(outcome(core, tbl, stats) == want[q],
+                  f"{what}: response {i} == serial")
+
+    # ---- the answers to hold the scheduler against: the serial engine
+    eng, want = serial_answers(cfg)
+    t0 = time.perf_counter()
+    for _, q in stream:
+        eng.run(q)
+    sync()
+    t_serial = time.perf_counter() - t0
+    print(f"serving: {len(queries)} distinct queries x {CLIENTS} clients = "
+          f"{len(stream)} requests (interface spf, lanes {LANES}); the "
+          f"serial QueryEngine.run loop over them (warm) {t_serial:.3f} s = "
+          f"{len(stream) / t_serial:.1f} requests/s")
+
+    # ---- drains 1 (cold) and 2 (warm) through one scheduler
+    sched = Logged(store, cfg, core.SchedulerConfig(lanes=LANES),
+                   device=cuda)
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    walls = []
+    for d in (1, 2, 3):
+        if d == 3:  # drains 1 and 2 are the serving path
+            launches = dict(ops.LAUNCHES)
+        m0, n_waves = sched.metrics.as_dict(), len(sched.wave_log)
+        replays0 = ops.LAUNCHES["replay_delta"]
+        t0 = time.perf_counter()
+        served = sched.serve(stream)
+        sync()
+        wall = time.perf_counter() - t0
+        walls.append(wall)
+        hold(stream, served, want, f"drain {d}")
+        delta = {k: v - m0[k] for k, v in sched.metrics.as_dict().items()}
+        all_hit = [w for w in sched.wave_log[n_waves:] if w[0] == 0]
+        check(all(pulls == retries for _, pulls, retries in all_hit),
+              f"drain {d}: all-hit waves pull no table beyond retires")
+        print(f"drain {d}: {wall:.3f} s = {len(stream) / wall:.1f} "
+              f"requests/s; {delta}; {len(all_hit)} of "
+              f"{len(sched.wave_log) - n_waves} waves all-hit; occupancy "
+              f"{sched.metrics.occupancy:.3f}, pad_fraction "
+              f"{sched.metrics.pad_fraction:.3f}, cache hit rate "
+              f"{sched.cache.stats.hit_rate:.4f} (hits "
+              f"{sched.cache.stats.hits}, shared {sched.cache.stats.shared_hits}"
+              f", misses {sched.cache.stats.misses})")
+        if d == 2:
+            check(delta["steps_skipped"] > 0, "drain 2 replays units")
+            check(ops.LAUNCHES["replay_delta"] > replays0,
+                  "drain 2 launched the replay kernel")
+        if d == 3:
+            check(all_hit, "drain 3 has all-hit waves")
+    check(launches["fingerprint_rows"] > 0 and launches["replay_delta"] > 0,
+          "the serving path launched the fingerprint and replay kernels")
+    check(sched.cache.stats.hits > 0, "the cache served hits")
+    print(f"serving path (drains 1-2) kernel launches {launches}; drain 3 "
+          f"{ {k: v - launches[k] for k, v in ops.LAUNCHES.items()} }")
+
+    # ---- cache off, collapse off, through QueryEngine.run_load
+    eng_off = core.QueryEngine(store, cfg, device=cuda)
+    off = core.QueryScheduler(store, cfg, core.SchedulerConfig(
+        lanes=LANES, use_cache=False, collapse_duplicates=False),
+        planner=eng_off.planner, device=cuda)
+    t0 = time.perf_counter()
+    tables, stats = eng_off.run_load([q for _, q in stream], scheduler=off)
+    sync()
+    t_off = time.perf_counter() - t0
+    hold(stream, list(zip(tables, stats)), want, "cache off")
+    check(off.metrics.jobs == len(stream) and off.cache.stats.hits == 0,
+          "cache off: one job per request, no cache hit")
+    tables, stats = eng_off.run_load(queries)
+    hold([(0, q) for q in queries], list(zip(tables, stats)), want,
+         "run_load")
+    print(f"cache off, collapse off: {off.metrics.jobs} jobs in "
+          f"{off.metrics.waves} waves, {t_off:.3f} s = "
+          f"{len(stream) / t_off:.1f} requests/s, occupancy "
+          f"{off.metrics.occupancy:.3f}, pad_fraction "
+          f"{off.metrics.pad_fraction:.3f}; all equal to serial, and "
+          f"QueryEngine.run_load's default scheduler too")
+
+    # ---- the other interfaces, cache on, 4 clients
+    for iface in ("tpf", "brtpf", "endpoint"):
+        icfg = core.EngineConfig(interface=iface)
+        _, iwant = serial_answers(icfg)
+        isched = core.QueryScheduler(store, icfg, core.SchedulerConfig(
+            lanes=LANES), device=cuda)
+        istream = core.interleave_clients(queries, 4)
+        t0 = time.perf_counter()
+        served = isched.serve(istream)
+        sync()
+        hold(istream, served, iwant, iface)
+        print(f"{iface}: {len(istream)} requests equal to serial in "
+              f"{time.perf_counter() - t0:.3f} s, hit rate "
+              f"{isched.cache.stats.hit_rate:.4f}")
+
+    # ---- a write while serving, on the drains' scheduler
+    one_star = loads["1-star"][0]
+    read_preds = {t.p.id for t in one_star.patterns if not t.p.is_var}
+    feed = WriteFeed(store, read_preds, rate=0.01, seed=SEED + 7)
+    window = feed.next_window()
+    rids = [sched.submit(q, client=c) for c, q in stream]
+    sched.submit_write(**window)
+    t0 = time.perf_counter()
+    results = sched.drain()
+    sync()
+    t_write = time.perf_counter() - t0
+    _, want_post = serial_answers(cfg)
+    first = [results[r] for r in rids]
+    hold(stream, first, want_post, "write")
+    check(sched.cache.stats.carryover > 0 and sched.planner.stats.carryover
+          > 0, "cache and planner entries carried over the write")
+    again = sched.serve(stream)
+    sync()
+    hold(stream, again, want_post, "write, again")
+    changed = sum(want_post[q] != want[q] for q in queries)
+    # no answer holds a tombstoned triple
+    r = np.int64(store.n_terms)
+    tomb = np.array(sorted(store._tomb_set), np.int64).reshape(-1, 3)
+    tomb_codes = (tomb[:, 0] * r + tomb[:, 1]) * r + tomb[:, 2]
+    answered = {q: tbl for (_, q), (tbl, _) in zip(stream, first)}
+    for q, tbl in answered.items():
+        rows = core.results_as_numpy(tbl).astype(np.int64)
+        for tp in q.patterns:
+            s, p, o = (rows[:, t.id] if t.is_var else np.int64(t.id)
+                       for t in (tp.s, tp.p, tp.o))
+            codes = (p * r + s) * r + o
+            check(not np.isin(codes, tomb_codes).any(),
+                  "no answer holds a tombstoned triple")
+    print(f"write while serving: {window['insert'][0].shape[0]} inserts + "
+          f"{window['delete'][0].shape[0]} deletes on predicates "
+          f"{sorted(read_preds)} + {feed.feed_preds.tolist()} applied at "
+          f"wave boundary zero; drain {t_write:.3f} s; {len(stream)} "
+          f"responses equal to serial on the post-write store twice "
+          f"({changed} of {len(queries)} answers changed), none holds one "
+          f"of the {tomb.shape[0]} tombstoned triples; carry-over: cache "
+          f"{sched.cache.stats.carryover} entries (swept "
+          f"{sched.cache.stats.swept}), planner "
+          f"{sched.planner.stats.carryover} marks (swept "
+          f"{sched.planner.stats.swept})")
+    print(f"serving walls: serial loop {t_serial:.3f} s, drain 1 (cold) "
+          f"{walls[0]:.3f} s, drain 2 (warm) {walls[1]:.3f} s, drain 3 "
+          f"{walls[2]:.3f} s for {len(stream)} requests")
+    return launches
+
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -519,6 +834,8 @@ def main() -> int:
     # ---- 4. kernels against their plain versions
     t_phase = time.perf_counter()
     report = kernel_phase(torch, np, store, dev)
+    sched_report = scheduler_kernel_phase(torch, np, cuda)
+    torch.cuda.empty_cache()
     phases["4 kernels"] = time.perf_counter() - t_phase
 
     # ---- 5. the main path on the card, then the same queries on the CPU
@@ -589,6 +906,16 @@ def main() -> int:
               f"ms on the live store, {np.mean(rebuilt) * 1e3:8.3f} ms on "
               f"the rebuilt store (mean of {len(live)})")
     phases["6 live store"] = time.perf_counter() - t_phase
+
+    # ---- 7. serving: the scheduler on the compacted store
+    t_phase = time.perf_counter()
+    serve_launches = serving_phase(torch, np, core, store, loads, cuda)
+    for entry in sched_report:
+        entry["launches"] = serve_launches[entry["name"]]
+        check(entry["launches"] > 0, f"{entry['name']} ran on the serving "
+              f"path")
+    report += sched_report
+    phases["7 serving"] = time.perf_counter() - t_phase
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total {time.perf_counter() - t_start:.1f}")

@@ -9,8 +9,15 @@
 - :mod:`repro_torch.core.engine`    — the four interfaces (TPF / brTPF /
   SPF / endpoint) with the paper's NRS / NTB / load accounting
 - :mod:`repro_torch.core.capacity`  — degree-based capacity planning
-- :mod:`repro_torch.core.stepper`   — the serial unit step, reseat and the
-  host cost account
+- :mod:`repro_torch.core.stepper`   — the serial unit step, the wave
+  steps (lane-looped unit step, device digest, device replay), reseat and
+  the host cost account
+- :mod:`repro_torch.core.scheduler` — concurrent query scheduler: mixed
+  loads as signature-bucketed, cache-aware lane waves, with live writes
+  at wave boundaries
+- :mod:`repro_torch.core.fragcache` — shared star-fragment cache over
+  canonicalized seeded unit requests (frequency-aware admission,
+  negative-result side table, store-epoch invalidation and carry-over)
 - :mod:`repro_torch.core.oracle`    — brute-force ground truth (tests)
 """
 
@@ -33,10 +40,17 @@ from repro_torch.core.engine import (
     QueryStats,
     results_as_numpy,
 )
+from repro_torch.core.fragcache import FragmentCache
+from repro_torch.core.scheduler import (
+    QueryScheduler,
+    SchedulerConfig,
+    interleave_clients,
+)
 
 __all__ = [
     "BGP", "C", "StarPattern", "Term", "TriplePattern", "V",
     "bgp_from_tuples", "count_stars", "star_decomposition",
     "INTERFACES", "EngineConfig", "QueryEngine", "QueryStats",
-    "results_as_numpy", "CapacityPlanner",
+    "results_as_numpy", "CapacityPlanner", "FragmentCache",
+    "QueryScheduler", "SchedulerConfig", "interleave_clients",
 ]

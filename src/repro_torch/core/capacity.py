@@ -28,10 +28,13 @@ valid rows and cost account are independent of the capacity it ran at, so
 results.  Planned capacities are therefore **snug**; only in-run overflow
 *growth* keeps the 4x factor (``rung``).
 
-This is the serial half of the JAX reference's planner: ``sync_epoch``
-sweeps every other epoch's marks (the carry-over of marks whose
-predicates a delta did not touch waits for the scheduler), and the
-sharded-step hints wait for the sharded lowering.
+One planner may serve any number of engines and schedulers: it is
+host-side state consulted between device steps.  On a new store epoch
+``sync_epoch`` sweeps the marks of other epochs, or, given the
+predicates the delta touched (the scheduler passes
+``TripleStore.changed_preds_since``), carries the untouched ones over.
+The sharded-step hints of the JAX reference's planner are not part of
+this package yet.
 """
 
 from __future__ import annotations
@@ -67,6 +70,10 @@ class PlannerStats(RegistryView):
         "hwm_caps",  # capacities served from the high-water-mark memory
         "observations",
         "swept",  # HWM entries dropped on an epoch sweep
+        # HWM entries re-keyed to a new epoch because the delta touched
+        # none of their constants' predicates (warm carry-over; mirrors
+        # cache.carryover)
+        "carryover",
     )
 
 
@@ -231,6 +238,19 @@ class CapacityPlanner:
         self.stats.oracle_caps += 1
         return self.snug(self.seeded_unit_bound(plan, k, n_in))
 
+    def query_cap(self, plan: "QueryPlan") -> int:
+        """Whole-query starting capacity (the scheduler's per-wave tables
+        share one capacity across units): HWM if observed, else the snug
+        capacity covering the largest per-unit bound."""
+        epoch = self.store.epoch
+        hwm = self._get_hwm((plan.signature, plan.consts, "q", epoch))
+        if hwm is not None:
+            self.stats.hwm_caps += 1
+            return hwm
+        self.stats.oracle_caps += 1
+        bounds = self.unit_bounds(plan)
+        return self.snug(max(bounds, default=1))
+
     # --------------------------------------------------------- observation
     def _get_hwm(self, key: tuple) -> int | None:
         cap = self._hwm.get(key)
@@ -255,13 +275,43 @@ class CapacityPlanner:
                       cap)
 
     # --------------------------------------------------------------- epoch
-    def sync_epoch(self, epoch: int) -> int:
+    @property
+    def synced_epoch(self) -> int:
+        """The store epoch this planner last swept against (callers pair
+        it with ``TripleStore.changed_preds_since`` for carry-over)."""
+        return self._swept_epoch
+
+    def sync_epoch(self, epoch: int, changed_preds=None) -> int:
         """Sweep HWM entries from other epochs on first sight of a new one
         (the epoch is also folded into every key, so this only reclaims
-        memory).  Returns the number dropped."""
+        memory).  Returns the number dropped.
+
+        With ``changed_preds`` (the predicate ids touched since the last
+        sweep) an entry whose constants (``key[1]`` — every predicate its
+        plan probes is among them) avoid the changed set is re-keyed to
+        the new epoch instead of dropped, so untouched plans keep their
+        warm capacities across delta epochs.  A high-water mark is an
+        upper bound on the untouched plan's need, so carrying it is
+        byte-safe (capacity-independence).  ``None`` sweeps everything,
+        as the serial engine's call does."""
         if epoch == self._swept_epoch:
             return 0
         self._swept_epoch = epoch
+        if changed_preds is not None:
+            changed = frozenset(changed_preds)
+            hwm = OrderedDict()
+            dropped = 0
+            for k, cap in self._hwm.items():
+                if k[3] == epoch:
+                    hwm[k] = cap
+                elif changed.isdisjoint(k[1]):
+                    hwm[k[:3] + (epoch,)] = cap
+                    self.stats.carryover += 1
+                else:
+                    dropped += 1
+            self._hwm = hwm
+            self.stats.swept += dropped
+            return dropped
         stale = [k for k in self._hwm if k[3] != epoch]
         for k in stale:
             del self._hwm[k]

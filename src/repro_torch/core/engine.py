@@ -91,8 +91,8 @@ class QueryStats(NamedTuple):
 
     ``nrs``/``ntb`` are *gross* counts — what the interface protocol costs
     with no cache in front of the server.  The cache fields stay zero on
-    the serial ``run`` path (the scheduler that fills them is not part of
-    this package yet).
+    the serial ``run`` path; the scheduler (``core/scheduler.py``) fills
+    them.
     """
 
     nrs: torch.Tensor  # number of requests to the server
@@ -396,6 +396,23 @@ class QueryEngine:
             n_results=n_results, overflow=overflow,
         )
         return BindingTable(rows, valid, ovf_dev), stats
+
+    def run_load(self, queries: list[BGP], scheduler=None
+                 ) -> tuple[list[BindingTable], list[QueryStats]]:
+        """Serve a query list through the concurrent scheduler.
+
+        Batches plan-homogeneous queries into lane waves and serves
+        repeated star/bind requests from the fragment cache; results are
+        byte-identical (valid rows) to looping ``run`` and the gross stats
+        fields match it exactly.  Pass a ``QueryScheduler`` to share its
+        fragment cache (and its metrics) across calls.
+        """
+        from repro_torch.core.scheduler import QueryScheduler
+
+        sched = scheduler or QueryScheduler(self.store, self.cfg,
+                                            planner=self.planner,
+                                            device=self.device)
+        return sched.run_queries(queries)
 
 
 def results_as_numpy(table: BindingTable) -> np.ndarray:

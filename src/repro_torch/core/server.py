@@ -39,6 +39,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.bindings import (
@@ -475,6 +476,116 @@ def scan_ovar_free(ctx: EvalCtx, b: BranchPlan, table: BindingTable
         ctx, b, table, lo, hi, dp, "ps",
         ((dev.s_pso, dev.ins_s_pso), (dev.o_pso, dev.ins_o_pso)), True, True)
     return out, active * (2 * ctx.logn) + ex_ops
+
+
+# --------------------------------------------------------------------------
+# unit-level request canonicalization (host-side; the fragment-cache key)
+# --------------------------------------------------------------------------
+
+class UnitIO(NamedTuple):
+    """What one unit request reads and writes, in canonical form.
+
+    This is the brTPF/SPF request canonicalization: a seeded unit request
+    is fully determined by the unit's *structure* (case sequence with
+    variables renamed to read/write slots), the constants it mentions, and
+    the Omega block restricted to the variables the unit actually reads —
+    bindings-restricted semantics make everything else carried payload.
+    Two units from different queries that canonicalize identically are the
+    same server request, which is what makes star fragments cacheable
+    across queries and clients (``core/fragcache.py``).
+    """
+
+    canon_sig: tuple  # branch structure with vars renamed to r/w slots
+    read_cols: tuple[int, ...]  # table columns the unit reads (bound before)
+    write_cols: tuple[int, ...]  # table columns the unit binds
+    const_idx: tuple[int, ...]  # positions in const_vec the unit mentions
+
+
+def unit_io(plan: UnitPlan) -> UnitIO:
+    """Derive a unit's canonical I/O signature from its branch plan.
+
+    Variables are renamed to ``("r", i)`` / ``("w", i)`` slots in first-use
+    order; a variable bound *within* the unit (a scan'd subject, a free
+    object) is a write, and later mentions of it inside the same unit refer
+    to the write slot — only externally-bound variables become reads, i.e.
+    the relevant bindings of the Omega block.
+    """
+    reads: list[int] = []
+    writes: list[int] = []
+    consts: list[int] = []
+    written: set[int] = set()
+
+    def slot(var: int, is_write: bool) -> tuple[str, int]:
+        if is_write and var not in written:
+            written.add(var)
+            writes.append(var)
+        if var in written:
+            return ("w", writes.index(var))
+        if var not in reads:
+            reads.append(var)
+        return ("r", reads.index(var))
+
+    sig = []
+    for b in plan.branches:
+        consts.append(b.pred_ci)
+        s_kind, s_idx = b.subj_src
+        if s_kind == "const":
+            consts.append(s_idx)
+            s_tag: tuple = ("c",)
+        else:  # scan cases bind the subject; probe cases read it
+            s_tag = slot(s_idx, is_write=b.case.startswith("scan"))
+        o_kind, o_idx = b.obj_src
+        if o_kind == "const":
+            consts.append(o_idx)
+            o_tag: tuple = ("c",)
+        else:
+            o_tag = slot(o_idx, is_write=b.case.endswith("ovar_free"))
+        sig.append((b.case, s_tag, o_tag))
+    return UnitIO(tuple(sig), tuple(reads), tuple(writes), tuple(consts))
+
+
+def unit_request_key(io: UnitIO, const_vals: tuple[int, ...],
+                     omega_block: np.ndarray, cap: int,
+                     epoch: int = 0) -> tuple:
+    """Canonical hashable key for one seeded unit request.
+
+    ``const_vals`` are the unit's constants in branch order;
+    ``omega_block`` the valid rows restricted to ``io.read_cols`` (int32,
+    C-contiguous).  ``cap`` is part of the key because overflow clamping
+    and the ops account depend on the table capacity.  ``epoch`` is the
+    store epoch (``TripleStore.epoch``) the request is evaluated against:
+    folding it into the key guarantees responses computed before a store
+    mutation can never alias requests issued after it, even through a
+    shared cache (``core/fragcache.py`` additionally drops stale
+    entries lazily on lookup).
+    """
+    block = np.ascontiguousarray(omega_block, dtype=np.int32)
+    return (io.canon_sig, const_vals, cap, epoch, block.shape[0],
+            block.tobytes())
+
+
+def unit_digest_key(io: UnitIO, const_vals: tuple[int, ...], cap: int,
+                    epoch: int, n_in: int,
+                    digest: tuple[int, int, int, int]) -> tuple:
+    """Digest form of ``unit_request_key``: the Omega block represented by
+    its on-device fingerprint instead of its raw bytes.
+
+    ``digest`` is ``kops.fingerprint_rows`` over the valid prefix of the
+    block's read columns (or ``ref.fingerprint_prefix_np`` of the same
+    prefix on host-replayed state — bit-identical by construction), and
+    ``n_in`` the prefix length.  The digest enters the key as four
+    non-negative Python ints, the same ints the JAX reference's keys
+    hold, so cache state keyed in either package names the same
+    requests.  The scheduler keys the fragment cache
+    with this form so a unit step ships 16 bytes per lane to the host
+    instead of the whole Omega block.  The ``"fp32x4"`` tag keeps the two
+    key forms structurally disjoint — a digest key can never alias a
+    byte key that happens to contain the same integers.  Collision risk
+    across distinct blocks is that of a 128-bit hash (~2^-64 per pair),
+    far below any operational concern.
+    """
+    return (io.canon_sig, const_vals, cap, epoch, int(n_in),
+            ("fp32x4", tuple(int(x) for x in digest)))
 
 
 BRANCH_EVALUATORS: dict[str, BranchEvaluator] = {

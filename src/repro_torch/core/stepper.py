@@ -1,17 +1,34 @@
-"""Unit-stepped execution machinery for the serial engine.
+"""Unit-stepped execution machinery: the serial engine's ladder step and
+the scheduler's wave steps.
 
-The serial half of the JAX reference's stepper:
+The single-host half of the JAX reference's stepper (the sharded
+lowering is not part of this package yet).  Everything runs eagerly:
+where the reference jits each step and caches it by unit structure,
+these are plain calls, so there is no step cache.
 
+- ``unit_step``        — the scheduler's wave step: per-lane seeded unit
+  evaluation with a provenance column (the source row of every output
+  row, which makes computed fragments replayable as cache deltas),
+  returning per-lane ``(rows, valid, overflow, src, ops, count, peak)``.
+  The reference runs it as ``jit(vmap(lane_fn))``; here the same
+  per-lane evaluator runs lane by lane and the outputs are stacked,
+  which is what vmap computes.  Lanes nothing reads (no-op padding and
+  retired lanes) are skipped.
 - ``serial_unit_step`` — the engine's ladder step: one seeded unit
-  evaluation returning ``(rows, valid, overflow, ops, count, peak)``.  The
-  reference batches it over a leading lane axis and jits it per unit
-  structure; here it runs eagerly on one table, so the lane axis and the
-  compile cache are gone.
+  evaluation returning ``(rows, valid, overflow, ops, count, peak)`` on
+  one table (no lane axis, no provenance column).
+- ``digest_step``      — the wave fingerprint: one ``kops.fingerprint_rows``
+  launch over every lane's read columns, so the fragment cache is
+  consulted with a 16-byte digest per lane instead of a host pull of the
+  Omega block.
+- ``replay_step``      — the wave-wide cache-hit replay: one
+  ``kops.replay_delta`` launch scatters the cached deltas onto the lanes'
+  seed tables, so all-hit waves never pull tables to the host.
 - ``reseat``           — capacity regrow/shrink of a compacted table
   (resumable overflow grows exactly one unit's table; the valid prefix is
   preserved, the new tail is UNBOUND-filled).
 - ``unit_cost``        — host twin of ``engine._execute``'s per-unit cost
-  accounting, for the planned serial path.
+  accounting, shared by the planned serial path and the scheduler.
 - ``endpoint_totals``  — the endpoint interface's whole-query (nrs, ntb).
 """
 
@@ -21,6 +38,50 @@ import torch
 
 from repro_torch.core.bindings import UNBOUND, BindingTable
 from repro_torch.core.server import UnitPlan, eval_unit
+from repro_torch.kernels import ops as kops
+
+
+def unit_step(up: UnitPlan, radix: int, logn: int | None = None):
+    """The scheduler's wave step for unit ``up``:
+
+        step(dev, consts[B, n_c], rows[B, cap, V], valid[B, cap],
+             overflow[B], active=None)
+        -> (rows, valid, overflow, src[B, cap], ops[B], count[B], peak[B])
+
+    Each lane in ``active`` (every lane when ``None``) runs ``eval_unit``
+    on its table with a provenance column ``arange(cap)`` appended; the
+    column is stripped off again as ``src``.  A lane outside ``active``
+    is not evaluated: it comes out as an empty UNBOUND table (``src``
+    UNBOUND too), ``ops = count = peak = 0`` and its overflow flag
+    unchanged — the scheduler reads only active lanes.  ``logn`` carries
+    the logical-count cost factor.
+    """
+    def step(dev, consts, rows, valid, overflow, active=None):
+        n_lanes, cap, n_vars = rows.shape
+        device = rows.device
+        prov = torch.arange(cap, dtype=torch.int32, device=device)[:, None]
+        lanes = range(n_lanes) if active is None else set(active)
+        zero = torch.zeros((), dtype=torch.int64, device=device)
+        empty_rows = torch.full((cap, n_vars), UNBOUND, dtype=torch.int32,
+                                device=device)
+        empty_src = torch.full((cap,), UNBOUND, dtype=torch.int32,
+                               device=device)
+        empty_valid = torch.zeros(cap, dtype=torch.bool, device=device)
+        outs = []
+        for j in range(n_lanes):
+            if j not in lanes:
+                outs.append((empty_rows, empty_valid, overflow[j], empty_src,
+                             zero, zero, zero))
+                continue
+            table = BindingTable(torch.cat([rows[j], prov], dim=1), valid[j],
+                                 overflow[j])
+            table, ops, peak = eval_unit(dev, radix, up, consts[j], table,
+                                         logn=logn)
+            outs.append((table.rows[:, :-1], table.valid, table.overflow,
+                         table.rows[:, -1], ops, table.count(), peak))
+        return tuple(torch.stack(list(col)) for col in zip(*outs))
+
+    return step
 
 
 def serial_unit_step(up: UnitPlan, radix: int, logn: int | None = None):
@@ -36,6 +97,38 @@ def serial_unit_step(up: UnitPlan, radix: int, logn: int | None = None):
                 torch.sum(table.valid.to(torch.int64)), peak)
 
     return step
+
+
+def digest_step(read_cols: tuple[int, ...]):
+    """The wave fingerprint: ``fn(rows[B, cap, V], valid[B, cap]) ->
+    int64[B, 4]``, the digest of each lane's valid rows restricted to
+    ``read_cols`` (a zero-width block when there are none), in one
+    ``kops.fingerprint_rows`` call — the device half of the digest-first
+    cache keys (host twin: ``ref.fingerprint_prefix_np``)."""
+    cols = tuple(read_cols)
+
+    def fn(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        if cols:
+            idx = torch.tensor(cols, dtype=torch.int64, device=rows.device)
+            block = rows.index_select(2, idx)
+        else:
+            block = rows.new_empty((rows.shape[0], rows.shape[1], 0))
+        return kops.fingerprint_rows(block, valid)
+
+    return fn
+
+
+def replay_step(write_cols: tuple[int, ...]):
+    """The wave-wide cache-hit replay: ``fn(rows[B, cap, V], src[B, M],
+    written[B, M, W], n_out[B]) -> (rows, valid)`` in one
+    ``kops.replay_delta`` call.  Lanes with ``n_out == 0`` (padding,
+    retired, negative fragments) come out empty."""
+    cols = tuple(write_cols)
+
+    def fn(rows, src, written, n_out):
+        return kops.replay_delta(rows, src, written, n_out, cols)
+
+    return fn
 
 
 def reseat(rows: torch.Tensor, valid: torch.Tensor, new_cap: int

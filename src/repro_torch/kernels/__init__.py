@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the SPF probe path, and their seam.
+"""Hand-written Hopper kernels for the SPF engine and scheduler, and their seam.
 
 Layer map (bottom-up):
 
@@ -12,6 +12,12 @@ Layer map (bottom-up):
                    runs: one thread per row, one bisection
 - delta_probe    — the live store's delta half of a merged probe: insert
                    equal range + tombstone ranks, one thread per query
+- fingerprint    — the scheduler's wave digest: a 4 x uint32 hash of each
+                   lane's valid rows, one thread per row, warp shuffles
+                   and atomics into a per-lane accumulator
+- replay         — the scheduler's cache-hit replay: cached deltas
+                   gathered onto the lanes' seed tables, one thread per
+                   output element
 - ref            — plain PyTorch versions (the CPU path and the kernels'
                    ground truth)
 - ops            — THE dispatch layer: a CUDA tensor runs the kernel, a

@@ -1,8 +1,9 @@
-"""The kernel dispatch layer: every probe primitive of the engine, one seam.
+"""The kernel dispatch layer: every kernel primitive of the engine, one seam.
 
-The query engine (``core/server.py``, ``core/bindings.py``) and the
-capacity planner route their probe primitives through these wrappers;
-nothing above this layer names a kernel or picks a path.
+The query engine (``core/server.py``, ``core/bindings.py``), the capacity
+planner and the scheduler's wave steps (``core/stepper.py``) route their
+primitives through these wrappers; nothing above this layer names a
+kernel or picks a path.
 
 Dispatch policy
 ---------------
@@ -10,15 +11,17 @@ By the device of the tensors, and nothing else: tensors on a CUDA device
 launch the hand-written CUDA kernel, tensors on the CPU run the plain
 PyTorch version (``repro_torch.kernels.ref``).  Any other device raises.
 There is no override switch, no small-batch cutoff and no fallback: on
-the card a failed build or launch raises to the caller.  The kernels
-take the widths the engine probes with — int64 keys and queries (and
-int32 tombstone positions with int32 queries), int32 or int64 run values
-with int64 targets, int64 insert keys with int32 tombstone positions —
-and raise on any other.
+the card a failed build or launch raises to the caller; a zero-column
+digest block is a kernel launch too.  The kernels take the widths their
+callers pass — int64 keys and queries (and int32 tombstone positions with
+int32 queries), int32 or int64 run values with int64 targets, int64
+insert keys with int32 tombstone positions, int32 tables with bool
+validity and int32 deltas — and raise on any other.
 
 Launches are counted in ``LAUNCHES`` (``LAUNCHES["sorted_probe"]``,
-``LAUNCHES["run_probe"]``, ``LAUNCHES["delta_probe"]``), one per kernel
-launch; the CPU path never touches them.
+``["run_probe"]``, ``["delta_probe"]``, ``["fingerprint_rows"]``,
+``["replay_delta"]``), one per kernel launch; the CPU path never touches
+them.
 
 Join/probe primitives (the SPF server's hot path)
 -------------------------------------------------
@@ -38,6 +41,21 @@ Join/probe primitives (the SPF server's hot path)
                             insert-key equal range + tombstone ranks of
                             the base run bounds, one pass (the delta-probe
                             kernel).
+
+Scheduler primitives (the fragment cache's device half)
+-------------------------------------------------------
+- ``fingerprint_rows``    — 4 x uint32 digest of each lane's valid rows
+                            (the wave-fingerprint kernel), as int64
+                            holding the unsigned values: the cache keys'
+                            Omega digests (host twin
+                            ``ref.fingerprint_prefix_np``).
+- ``replay_delta``        — scatter cached fragment deltas onto the
+                            lanes' seed tables (the replay kernel; host
+                            twin ``fragcache.replay``), so all-hit waves
+                            never pull tables to the host.
+
+Host-side helpers
+-----------------
 - ``max_run_length_per_segment`` — per-predicate max equal-key run
                             length (the capacity planner's degree oracle;
                             plain torch on every device — once per store
@@ -55,6 +73,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401  (re-exported)
 from repro_torch.kernels.delta_probe import delta_probe_cuda
+from repro_torch.kernels.fingerprint import fingerprint_rows_cuda
+from repro_torch.kernels.replay import replay_delta_cuda
 from repro_torch.kernels.run_probe import run_probe_cuda
 from repro_torch.kernels.sorted_probe import sorted_probe_cuda
 
@@ -65,7 +85,7 @@ def _on_card(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"probe primitives run on CUDA or the CPU, not on "
+    raise ValueError(f"kernel primitives run on CUDA or the CPU, not on "
                      f"{t.device}")
 
 
@@ -143,6 +163,35 @@ def delta_probe(ins_keys: torch.Tensor, tomb_pos: torch.Tensor,
                                 base_hi)
     return ref.delta_probe_ref(ins_keys, tomb_pos, query_keys, base_lo,
                                base_hi)
+
+
+# --------------------------------------------------------------------------
+# scheduler primitives
+# --------------------------------------------------------------------------
+
+def fingerprint_rows(block: torch.Tensor, valid: torch.Tensor
+                     ) -> torch.Tensor:
+    """4 x uint32 digest of each lane's valid rows of a wave ``block``
+    (``int32[B, n, C]`` with ``bool[B, n]``), as int64 ``[B, 4]`` holding
+    the unsigned values — bit-equal to the host twin
+    ``ref.fingerprint_prefix_np`` of each valid prefix."""
+    if _on_card(block):
+        return fingerprint_rows_cuda(block, valid)
+    return ref.fingerprint_rows_ref(block, valid)
+
+
+def replay_delta(seed_rows: torch.Tensor, src: torch.Tensor,
+                 written: torch.Tensor, n_out: torch.Tensor,
+                 write_cols: tuple[int, ...]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Replay cached fragment deltas onto a wave's seed tables
+    (``[B, cap, V]``): the full-capacity ``(rows, valid)`` whose valid
+    prefix is ``seed_rows[src[:n_out]]`` with ``write_cols`` overwritten
+    by ``written`` — bit-equal on the valid prefix to the host twin
+    ``fragcache.replay``."""
+    if _on_card(seed_rows):
+        return replay_delta_cuda(seed_rows, src, written, n_out, write_cols)
+    return ref.replay_delta_ref(seed_rows, src, written, n_out, write_cols)
 
 
 def probe_op_cost(n: int) -> int:

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the probe primitives (the CPU path and the
-kernels' ground truth).
+"""Plain PyTorch versions of the kernel primitives — the probes, the
+wave fingerprint and the fragment replay (the CPU path and the kernels'
+ground truth).
 
 ``repro_torch.kernels.ops`` runs these for tensors on the CPU; on the card
 it launches the CUDA kernels, which ``chip_smoke.py`` and the card tests
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -146,3 +148,154 @@ def max_run_length_per_segment_ref(sorted_keys: torch.Tensor,
         0, run_id, torch.ones(n, dtype=torch.int64, device=dev))
     return out.scatter_reduce(0, segment_ids.to(torch.int64), run_len[run_id],
                               reduce="amax", include_self=True)
+
+
+# --------------------------------------------------------------------------
+# request fingerprints (the scheduler's digest-first cache keys)
+# --------------------------------------------------------------------------
+#
+# The hash is defined in wrapping uint32 arithmetic so that this plain
+# version, the CUDA kernel and the numpy host twin give identical bit
+# patterns, equal to the JAX reference's:
+#
+#     h_i   = fold over columns c of mix32(h ^ (v[i, c] + (c+1)*COL))
+#     g_i   = mix32(h_i ^ mix32((i+1) * POS))        position-dependent
+#     acc_s = sum_{valid i} mix32(g_i + SALT_s)       (mod 2^32, s = 0..3)
+#     out_s = mix32(acc_s ^ (n_valid * POS + SALT_s))
+#
+# Only valid rows contribute, so the digest of a table whose invalid
+# region holds step garbage equals the digest of its valid prefix.
+#
+# torch on the CPU has no uint32 arithmetic, so the plain version holds
+# every uint32 value in an int64 and masks with 0xFFFFFFFF after each
+# step.  A 32-bit value times a 32-bit constant overflows int64, so
+# ``_mul32`` splits the constant into 16-bit halves: every partial
+# product stays below 2^48.
+
+_M32 = 0xFFFFFFFF
+_FP_SEED = 0x9E3779B9
+_FP_COL = 0x85EBCA6B
+_FP_POS = 0x9E3779B1
+_FP_SALTS = (0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2^32`` for int64 ``x`` in ``[0, 2^32)``."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer on uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def fingerprint_rows_ref(block: torch.Tensor, valid: torch.Tensor
+                         ) -> torch.Tensor:
+    """The 4 x uint32 digest of the valid rows of ``block``.
+
+    ``block`` is ``int32[n, C]`` with ``valid`` ``bool[n]``, or carries a
+    leading lane axis (``[B, n, C]`` and ``[B, n]``, one digest per
+    lane).  Returns int64 ``[4]`` (or ``[B, 4]``) holding the unsigned
+    values — the same integers as the reference's uint32 digest.
+    """
+    n, n_cols = block.shape[-2], block.shape[-1]
+    dev = block.device
+    v = block.to(torch.int64) & _M32
+    h = torch.full(block.shape[:-1], _FP_SEED, dtype=torch.int64,
+                   device=dev)
+    for c in range(n_cols):
+        col = ((c + 1) * _FP_COL) & _M32
+        h = _mix32(h ^ ((v[..., c] + col) & _M32))
+    pos = _mul32(torch.arange(1, n + 1, dtype=torch.int64, device=dev)
+                 & _M32, _FP_POS)
+    g = _mix32(h ^ _mix32(pos))
+    m = valid.to(torch.int64)
+    n_in = m.sum(-1) & _M32
+    outs = []
+    for s in _FP_SALTS:
+        acc = (_mix32((g + s) & _M32) * m).sum(-1) & _M32
+        outs.append(_mix32(acc ^ ((_mul32(n_in, _FP_POS) + s) & _M32)))
+    return torch.stack(outs, -1)
+
+
+def _mix32_np(x: np.ndarray) -> np.ndarray:
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x85EBCA6B)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0xC2B2AE35)
+    x = x ^ (x >> np.uint32(16))
+    return x
+
+
+def fingerprint_prefix_np(block: np.ndarray) -> tuple[int, int, int, int]:
+    """Host twin of ``fingerprint_rows_ref`` for an all-valid prefix block.
+
+    ``block`` is the valid prefix ``int32[n, C]`` (every row valid, in
+    order).  Bit-identical to the digest of a table whose valid prefix is
+    exactly ``block``; returns Python ints, as the reference does.
+    """
+    block = np.ascontiguousarray(block, dtype=np.int32)
+    n, n_cols = block.shape
+    h = np.full((n,), _FP_SEED, np.uint32)
+    for c in range(n_cols):
+        v = block[:, c].astype(np.uint32)
+        h = _mix32_np(h ^ (v + np.uint32(((c + 1) * _FP_COL) & _M32)))
+    pos = (np.arange(n, dtype=np.uint32) + np.uint32(1)) * np.uint32(_FP_POS)
+    g = _mix32_np(h ^ _mix32_np(pos))
+    accs = np.array(
+        [np.sum(_mix32_np(g + np.uint32(s)), dtype=np.uint32) if n else 0
+         for s in _FP_SALTS], np.uint32)
+    fins = np.array([(n * _FP_POS + s) & _M32 for s in _FP_SALTS], np.uint32)
+    # 1-D arrays throughout: numpy warns on uint32 wrap-around for
+    # scalar operands but not for arrays
+    out = _mix32_np(accs ^ fins)
+    return tuple(int(x) for x in out)
+
+
+# --------------------------------------------------------------------------
+# fragment replay (the scheduler's device-side cache-hit path)
+# --------------------------------------------------------------------------
+
+def replay_delta_ref(seed_rows: torch.Tensor, src: torch.Tensor,
+                     written: torch.Tensor, n_out: torch.Tensor,
+                     write_cols: tuple[int, ...]
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter a cached fragment delta onto a lane's seed prefix.
+
+    ``seed_rows`` is the lane's full-capacity table ``int32[cap, V]``
+    whose valid prefix is the unit's input; ``src`` the delta's source
+    rows ``int32[M]`` (``M <= cap``; entries past ``n_out`` are padding),
+    ``written`` the values for ``write_cols`` ``int32[M, W]``, ``n_out``
+    the true output row count.  Every argument may carry a leading lane
+    axis (``[B, cap, V]``, ``[B, M]``, ``[B, M, W]``, ``[B]``).  Returns
+    the replayed ``(rows, valid)`` at full capacity, the dead region
+    UNBOUND: row ``j < n_out`` is ``seed_rows[src[j]]`` with the write
+    columns overwritten by ``written[j]``.  The reference's gather clamps
+    an out-of-range ``src``; here the clamp is explicit.
+    """
+    lanes = seed_rows.dim() == 3
+    if not lanes:
+        seed_rows, src, written = seed_rows[None], src[None], written[None]
+        n_out = torch.as_tensor(n_out).reshape(1)
+    dev = seed_rows.device
+    b, cap, n_vars = seed_rows.shape
+    m = src.shape[1]
+    n_out = n_out.to(device=dev, dtype=torch.int64)
+    live = torch.arange(m, device=dev)[None, :] < n_out[:, None]
+    take = torch.where(live, src.to(torch.int64), 0).clamp(0, max(cap - 1, 0))
+    lane = torch.arange(b, device=dev)[:, None]
+    out = seed_rows[lane, take]
+    for w, c in enumerate(write_cols):
+        out[:, :, c] = written[:, :, w]
+    out = torch.where(live[:, :, None], out, -1)
+    rows = torch.full((b, cap, n_vars), -1, dtype=torch.int32, device=dev)
+    rows[:, :m] = out
+    valid = torch.arange(cap, device=dev)[None, :] < n_out[:, None]
+    if not lanes:
+        return rows[0], valid[0]
+    return rows, valid

@@ -1,12 +1,15 @@
-"""Observability switch and registry (the part the serial path needs).
+"""Observability switch and metrics registry.
 
-``obs.enabled`` is the module-level switch the engine's hooks read
-(default ``False``: a disabled hook costs one attribute read and mutates
-nothing).  ``registry`` holds the observability-only instruments, such as
-the serial engine's ``engine.query_latency_s`` histogram; it is mutated
-only while ``enabled`` is True.  ``PlannerStats`` is a
-``registry.RegistryView`` over its own registry and counts regardless.
-The span tracer is not part of this package yet.
+``obs.enabled`` is the module-level switch the engine's and the
+scheduler's hooks read (default ``False``: a disabled hook costs one
+attribute read and mutates nothing).  ``registry`` holds the
+observability-only instruments of the serial engine, such as its
+``engine.query_latency_s`` histogram; it is mutated only while
+``enabled`` is True (the scheduler's ``sched.query_latency_s`` goes to
+the scheduler's own registry under the same switch).  ``PlannerStats``,
+``CacheStats`` and ``SchedMetrics`` are views over registries
+(``registry.RegistryView``) and count regardless.  The span tracer is
+not part of this package yet.
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ instrument kinds:
 become read/write properties over ``<prefix>.<field>`` instruments, so
 ``stats.hits += 1`` call sites (and dataclass-style reprs and equality)
 work while the registry stays the single source of truth.
-``PlannerStats`` is the view the serial path uses.
+``PlannerStats``, ``CacheStats`` and ``SchedMetrics`` are the views the
+engine, the fragment cache and the scheduler use; a scheduler mounts all
+three on one registry, so one ``snapshot`` covers the serving stack.
+``reset`` zeroes a prefix (``FragmentCache.clear``).
 
 This module is dependency-free (no torch, no numpy) so importing it from
 the core modules costs nothing.
@@ -82,6 +85,16 @@ class MetricsRegistry:
             snap[k] = h.summary()
         return snap
 
+    def reset(self, prefix: str = "") -> None:
+        """Zero out instruments under ``prefix`` (all, when empty)."""
+        if not prefix:
+            self._scalars.clear()
+            self._hists.clear()
+            return
+        for d in (self._scalars, self._hists):
+            for k in [k for k in d if k.startswith(prefix)]:
+                del d[k]
+
 
 def _view_field(key: str):
     def _get(self):
@@ -114,6 +127,10 @@ class RegistryView:
 
     def __init__(self, registry: MetricsRegistry | None = None):
         self.registry = registry if registry is not None else MetricsRegistry()
+
+    def reset(self) -> None:
+        for f in self._FIELDS:
+            setattr(self, f, 0)
 
     def as_dict(self) -> dict:
         return {f: getattr(self, f) for f in self._FIELDS}

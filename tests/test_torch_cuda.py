@@ -1,5 +1,6 @@
-"""The CUDA kernels and the engine on the card (over a static store and a
-live one), held against the port's own plain CPU path (exact).  Every test here needs an NVIDIA GPU: it
+"""The CUDA kernels, the engine (over a static store and a live one) and
+the scheduler on the card, held against the port's own plain CPU path
+(exact).  Every test here needs an NVIDIA GPU: it
 carries the ``cuda`` marker and skips where there is none.
 
 This file imports only torch, numpy and ``repro_torch``, so it runs on a
@@ -14,9 +15,13 @@ import pytest
 from _torch import cuda_device, torch  # noqa: F401  (cuda_device: fixture)
 
 from repro_torch.core import INTERFACES, EngineConfig, QueryEngine, \
-    results_as_numpy
-from repro_torch.kernels import ops
+    QueryScheduler, SchedulerConfig, interleave_clients, results_as_numpy
+from repro_torch.core.fragcache import FragmentEntry, replay
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.delta_probe import delta_probe_cuda, delta_probe_plain
+from repro_torch.kernels.fingerprint import (fingerprint_rows_cuda,
+                                             fingerprint_rows_plain)
+from repro_torch.kernels.replay import replay_delta_cuda, replay_delta_plain
 from repro_torch.kernels.run_probe import run_probe_cuda, run_probe_plain
 from repro_torch.kernels.sorted_probe import (sorted_probe_cuda,
                                               sorted_probe_plain)
@@ -120,6 +125,71 @@ def test_delta_probe_kernel_matches_plain(cuda_device, m, t, q):
         np.testing.assert_array_equal(_np(g), _np(w))
 
 
+@pytest.mark.parametrize("lanes,n,cols", [
+    (8, 1 << 16, 3), (1, 1000, 1), (3, 777, 0), (2, 0, 3), (4, 1, 6),
+    (5, 300, 2),
+])
+def test_fingerprint_kernel_matches_plain(cuda_device, lanes, n, cols):
+    rng = np.random.default_rng(lanes * 7 + n + cols)
+    i32 = np.iinfo(np.int32)
+    block = rng.integers(i32.min, i32.max, (lanes, n, cols), dtype=np.int64,
+                         endpoint=True).astype(np.int32)
+    if n >= 3 and cols:
+        block[0, :3, 0] = [-1, i32.min, i32.max]
+    valid = np.zeros((lanes, n), bool)
+    lens = rng.integers(0, n + 1, lanes)
+    for j, m in enumerate(lens):
+        valid[j, :m] = True
+    if lanes > 2:
+        valid[-1] = rng.random(n) < 0.5  # a mask that is not a prefix
+    before = ops.LAUNCHES["fingerprint_rows"]
+    got = fingerprint_rows_cuda(_t(block, cuda_device),
+                                _t(valid, cuda_device))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fingerprint_rows"] == before + 1
+    want = fingerprint_rows_plain(_t(block), _t(valid))
+    assert got.dtype == torch.int64 and got.shape == (lanes, 4)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    for j in range(lanes - 1 if lanes > 2 else lanes):
+        assert tuple(_np(got[j]).tolist()) == \
+            ref.fingerprint_prefix_np(block[j, :lens[j]])
+
+
+@pytest.mark.parametrize("lanes,cap,n_vars,n_w,m", [
+    (8, 1 << 14, 6, 2, 1 << 14), (2, 64, 1, 1, 8), (3, 100, 4, 0, 40),
+    (1, 16, 3, 3, 16), (4, 0, 2, 1, 0), (2, 50, 5, 2, 1),
+])
+def test_replay_kernel_matches_plain(cuda_device, lanes, cap, n_vars, n_w,
+                                     m):
+    rng = np.random.default_rng(lanes + cap + n_vars * 3 + m)
+    seed = rng.integers(-1, 1 << 30, (lanes, cap, n_vars)).astype(np.int32)
+    src = rng.integers(0, max(cap, 1), (lanes, m)).astype(np.int32)
+    if m >= 2:
+        src[0, :2] = [cap, cap + 9]  # past the table: clamped
+    written = rng.integers(0, 1 << 30, (lanes, m, n_w)).astype(np.int32)
+    n_out = rng.integers(0, m + 1, lanes).astype(np.int32)
+    n_out[0] = 0
+    if lanes > 1:
+        n_out[1] = m + 3  # valid past M: UNBOUND rows
+    cols = tuple(rng.permutation(n_vars)[:n_w].tolist())
+    args = (seed, src, written, n_out)
+    before = ops.LAUNCHES["replay_delta"]
+    got = replay_delta_cuda(*(_t(a, cuda_device) for a in args), cols)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["replay_delta"] == before + (1 if cap else 0)
+    want = replay_delta_plain(*(_t(a) for a in args), cols)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.is_cuda
+        np.testing.assert_array_equal(_np(g), _np(w))
+    if cap and m:
+        j = lanes - 1
+        k = int(min(n_out[j], m))
+        rows, valid = replay(FragmentEntry(src[j, :k], written[j, :k],
+                                           False, 0), seed[j], cap, n_vars,
+                             cols)
+        np.testing.assert_array_equal(_np(got[0][j])[valid], rows[valid])
+
+
 def test_kernel_wrappers_validate_inputs(cuda_device):
     k = torch.arange(8, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -151,6 +221,31 @@ def test_kernel_wrappers_validate_inputs(cuda_device):
         run_probe_cuda(k, lo, lo, k.to(torch.int32))
     with pytest.raises(ValueError, match="values must be int32 or int64"):
         run_probe_cuda(k.to(torch.int16), lo, lo, k)
+    block = torch.zeros((2, 8, 3), dtype=torch.int32, device=cuda_device)
+    mask = torch.ones((2, 8), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="block must be torch.int32"):
+        fingerprint_rows_cuda(block.to(torch.int64), mask)
+    with pytest.raises(ValueError, match="valid must be torch.bool"):
+        fingerprint_rows_cuda(block, mask.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        fingerprint_rows_cuda(block[:, :, ::2], mask)
+    with pytest.raises(ValueError, match=r"\[B, n, C\]"):
+        fingerprint_rows_cuda(block[0], mask[0])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fingerprint_rows_cuda(block, mask.cpu())
+    src = torch.zeros((2, 4), dtype=torch.int32, device=cuda_device)
+    wr = torch.zeros((2, 4, 1), dtype=torch.int32, device=cuda_device)
+    n_out = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="src must be torch.int32"):
+        replay_delta_cuda(block, src.to(torch.int64), wr, n_out, (0,))
+    with pytest.raises(ValueError, match="n_out must be torch.int32"):
+        replay_delta_cuda(block, src, wr, n_out.to(torch.int64), (0,))
+    with pytest.raises(ValueError, match="distinct columns"):
+        replay_delta_cuda(block, src, wr, n_out, (3,))
+    with pytest.raises(ValueError, match="seed_rows must be a contiguous 3-D"):
+        replay_delta_cuda(block[0], src[0], wr[0], n_out[0], (0,))
+    with pytest.raises(ValueError, match="M <= cap"):
+        replay_delta_cuda(block[:, :2].contiguous(), src, wr, n_out, (0,))
 
 
 @pytest.fixture(scope="module")
@@ -215,4 +310,33 @@ def test_live_engine_on_card_matches_cpu(cuda_device):
                                           results_as_numpy(t_host)), load
                     assert tuple(int(x) for x in s_card)[:6] == \
                         tuple(int(x) for x in s_host)[:6], load
-    assert min(ops.LAUNCHES.values()) > 0
+    assert min(ops.LAUNCHES[k] for k in ("sorted_probe", "run_probe",
+                                         "delta_probe")) > 0
+
+
+def test_scheduler_on_card_matches_cpu(cuda_device, small_world):
+    """A 4-client stream through the scheduler on the card, drained cold
+    and warm: every response equals the CPU scheduler's (rows and all ten
+    stats fields), and the warm drain replays waves on the card."""
+    store, loads = small_world
+    qs = [q for load in ("1-star", "2-stars", "paths") for q in loads[load]]
+    stream = interleave_clients(qs, 4)
+    cfg = EngineConfig(interface="spf", cap=256)
+    card = QueryScheduler(store, cfg, SchedulerConfig(lanes=4))
+    host = QueryScheduler(store, cfg, SchedulerConfig(lanes=4),
+                          device="cpu")
+    assert card.device.type == "cuda"
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    for drain in ("cold", "warm"):
+        skipped = card.metrics.steps_skipped
+        replays = ops.LAUNCHES["replay_delta"]
+        got, want = card.serve(stream), host.serve(stream)
+        for (gt, gs), (wt, ws) in zip(got, want):
+            assert np.array_equal(results_as_numpy(gt), results_as_numpy(wt))
+            assert tuple(int(x) for x in gs) == tuple(int(x) for x in ws)
+        assert card.metrics.as_dict() == host.metrics.as_dict(), drain
+        assert list(card.cache._entries) == list(host.cache._entries)
+    assert card.metrics.steps_skipped > skipped
+    assert ops.LAUNCHES["replay_delta"] > replays
+    assert ops.LAUNCHES["fingerprint_rows"] > 0

@@ -47,8 +47,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     expected = {"repro_torch.core.engine", "repro_torch.kernels.ops",
                 "repro_torch.kernels.sorted_probe",
                 "repro_torch.kernels.run_probe",
-                "repro_torch.kernels.delta_probe", "repro_torch.rdf.store",
-                "repro_torch.rdf.writes",
+                "repro_torch.kernels.delta_probe",
+                "repro_torch.kernels.fingerprint",
+                "repro_torch.kernels.replay", "repro_torch.rdf.store",
+                "repro_torch.rdf.writes", "repro_torch.core.fragcache",
+                "repro_torch.core.scheduler", "repro_torch.core.stepper",
                 "repro_torch.obs.registry"}
     assert expected <= set(seen["modules"])
 

@@ -1,5 +1,6 @@
-"""The port's probe primitives against the JAX package's Pallas kernels
-(interpret mode) and jnp oracles, exactly.  The CUDA kernels themselves
+"""The port's kernel primitives (the probes, the wave fingerprint and the
+fragment replay) against the JAX package's Pallas kernels (interpret
+mode), jnp oracles and numpy twins, exactly.  The CUDA kernels themselves
 are held against these plain versions on the card by
 ``tests/test_torch_cuda.py``."""
 
@@ -13,12 +14,19 @@ from _torch import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as jref
+from repro.core import fragcache as ref_fragcache
 from repro.kernels.delta_probe import delta_probe_pallas
+from repro.kernels.fingerprint import fingerprint_rows_pallas
+from repro.kernels.replay import replay_delta_pallas
 from repro.kernels.run_probe import (run_probe_pallas,
                                      run_probe_prefetch_pallas)
 from repro.kernels.sorted_probe import sorted_probe_pallas
+from repro_torch.core import fragcache
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.delta_probe import delta_probe_cuda, delta_probe_plain
+from repro_torch.kernels.fingerprint import (fingerprint_rows_cuda,
+                                             fingerprint_rows_plain)
+from repro_torch.kernels.replay import replay_delta_cuda, replay_delta_plain
 from repro_torch.kernels.run_probe import run_probe_cuda, run_probe_plain
 from repro_torch.kernels.sorted_probe import (sorted_probe_cuda,
                                               sorted_probe_plain)
@@ -311,6 +319,177 @@ def test_int32_tombstone_ranks_match_reference(n, q):
     assert not _np(rank).any() and not _np(contains).any()
 
 
+# ---------------------------------------------------------------- fingerprint
+
+I32 = np.iinfo(np.int32)
+
+
+def _digest(x):
+    return tuple(int(v) for v in np.asarray(x).tolist())
+
+
+@pytest.mark.parametrize("n,cols,cap", [
+    (0, 0, 4), (0, 3, 8), (1, 1, 1), (5, 2, 16),
+    (100, 4, 256), (513, 3, 1024), (2048, 6, 2048),
+    (7, 0, 16), (0, 2, 0), (1000, 3, 1000),
+])
+def test_fingerprint_matches_reference(n, cols, cap):
+    """The port's plain digest (and ``ops.fingerprint_rows`` on the CPU)
+    of a cap-sized table with a valid prefix of ``n`` rows equals the
+    reference's Pallas kernel (interpret mode), its jnp oracle and both
+    packages' numpy twins of the bare prefix; garbage past the prefix is
+    invisible.  The values include -1 (UNBOUND) and the int32 extremes."""
+    rng = np.random.default_rng(n * 7 + cols + cap)
+    full = rng.integers(I32.min, I32.max, (cap, cols), dtype=np.int64,
+                        endpoint=True).astype(np.int32)
+    if cols and cap >= 4:
+        full[:4, 0] = [-1, I32.max, I32.min, 0]
+    valid = np.zeros(cap, bool)
+    valid[:n] = True
+    want = ref.fingerprint_prefix_np(full[:n])
+    assert want == jref.fingerprint_prefix_np(full[:n])
+    assert all(0 <= v < 2**32 for v in want)
+    assert _digest(jref.fingerprint_rows_ref(jnp.asarray(full),
+                                             jnp.asarray(valid))) == want
+    if cols and cap:
+        assert _digest(fingerprint_rows_pallas(
+            jnp.asarray(full), jnp.asarray(valid), r_tile=256,
+            interpret=True)) == want
+    got = fingerprint_rows_plain(_t(full), _t(valid))
+    assert got.dtype == torch.int64 and got.shape == (4,)
+    assert _digest(got) == want
+    got = ops.fingerprint_rows(_t(full[None]), _t(valid[None]))
+    assert got.shape == (1, 4) and _digest(got[0]) == want
+    full2 = full.copy()
+    full2[n:] = -7
+    assert _digest(fingerprint_rows_plain(_t(full2), _t(valid))) == want
+
+
+def test_fingerprint_non_prefix_mask_and_lane_axis():
+    """A mask that is not a prefix, and a wave ``[B, n, C]`` digested in
+    one call, each lane equal to the reference's per-lane digest."""
+    rng = np.random.default_rng(3)
+    rows = rng.integers(-1, 50, (5, 96, 3)).astype(np.int32)
+    rows[4, :3, 1] = [I32.min, I32.max, -1]
+    valid = np.zeros((5, 96), bool)
+    for j, m in enumerate([0, 1, 7, 96]):
+        valid[j, :m] = True
+    valid[4] = rng.random(96) < 0.5  # not a prefix
+    got = ops.fingerprint_rows(_t(rows), _t(valid))
+    assert got.shape == (5, 4) and got.dtype == torch.int64
+    for j in range(5):
+        want = _digest(jref.fingerprint_rows_ref(jnp.asarray(rows[j]),
+                                                 jnp.asarray(valid[j])))
+        assert _digest(got[j]) == want
+        assert _digest(fingerprint_rows_pallas(
+            jnp.asarray(rows[j]), jnp.asarray(valid[j]), r_tile=32,
+            interpret=True)) == want
+        if j < 4:
+            assert want == ref.fingerprint_prefix_np(rows[j, :valid[j].sum()])
+    empty = ops.fingerprint_rows(_t(rows[:, :, :0]).contiguous(), _t(valid))
+    for j in range(5):
+        assert _digest(empty[j]) == _digest(jref.fingerprint_rows_ref(
+            jnp.asarray(rows[j, :, :0]), jnp.asarray(valid[j])))
+
+
+def test_mix32_in_int64_matches_uint32():
+    """The int64 emulation of the uint32 multiply-and-mix is exact over
+    the values that overflow a naive int64 product: all-ones, the int32
+    extremes as unsigned, UNBOUND, and random 32-bit words."""
+    rng = np.random.default_rng(1)
+    vals = np.concatenate([
+        np.array([0, 1, 2**32 - 1, 2**31 - 1, 2**31, (-1) & 0xFFFFFFFF,
+                  0x85EBCA6B, 0xC2B2AE35], np.uint64),
+        rng.integers(0, 2**32, 1000, dtype=np.uint64)])
+    got = ref._mix32(torch.from_numpy(vals.astype(np.int64)))
+    want = ref._mix32_np(vals.astype(np.uint32))
+    np.testing.assert_array_equal(_np(got), want.astype(np.int64))
+    for c in (0x85EBCA6B, 0xC2B2AE35, 0x9E3779B1):
+        prod = ref._mul32(torch.from_numpy(vals.astype(np.int64)), c)
+        np.testing.assert_array_equal(
+            _np(prod), (vals.astype(np.uint32) * np.uint32(c)).astype(
+                np.int64))
+
+
+# ---------------------------------------------------------------- replay delta
+
+@pytest.mark.parametrize("n_in,n_out,cap,n_vars,n_w,m_pad", [
+    (1, 0, 8, 1, 0, 1),       # negative fragment: empty delta
+    (1, 3, 16, 2, 1, 4),      # fresh-seed expansion
+    (5, 5, 32, 3, 0, 8),      # pure filter unit: no write cols
+    (7, 19, 64, 4, 2, 32),    # fan-out with two written columns
+    (100, 257, 512, 5, 3, 512),
+    (3, 16, 16, 1, 1, 16),    # M == cap, V == 1
+])
+def test_replay_delta_matches_reference(n_in, n_out, cap, n_vars, n_w,
+                                        m_pad):
+    """The port's plain replay (and ``ops.replay_delta`` on the CPU)
+    equals the reference's Pallas kernel (interpret mode), its jnp
+    oracle and both packages' numpy twins ``fragcache.replay``, padded
+    delta widths and UNBOUND dead regions included."""
+    rng = np.random.default_rng(n_in + 3 * n_out + cap)
+    write_cols = tuple(range(n_vars - 1, n_vars - 1 - n_w, -1))
+    seed = np.full((cap, n_vars), -1, np.int32)
+    seed[:n_in] = rng.integers(0, 1000, (n_in, n_vars)).astype(np.int32)
+    src = rng.integers(0, n_in, n_out).astype(np.int32)
+    written = rng.integers(0, 1000, (n_out, n_w)).astype(np.int32)
+    entry = fragcache.FragmentEntry(src, written, False, 0)
+    want_rows, want_valid = fragcache.replay(entry, seed[:n_in], cap,
+                                             n_vars, write_cols)
+    twin = ref_fragcache.replay(
+        ref_fragcache.FragmentEntry(src, written, False, 0), seed[:n_in],
+        cap, n_vars, write_cols)
+    np.testing.assert_array_equal(twin[0], want_rows)
+    src_p = np.zeros((m_pad,), np.int32)
+    src_p[:n_out] = src
+    wr_p = np.zeros((m_pad, n_w), np.int32)
+    wr_p[:n_out] = written
+    j = (jnp.asarray(seed), jnp.asarray(src_p), jnp.asarray(wr_p),
+         jnp.int32(n_out))
+    for other in (jref.replay_delta_ref(*j, write_cols),
+                  replay_delta_pallas(*j, write_cols=write_cols, j_tile=16,
+                                      i_tile=32, interpret=True)):
+        np.testing.assert_array_equal(np.asarray(other[0]), want_rows)
+        np.testing.assert_array_equal(np.asarray(other[1]), want_valid)
+    n = torch.tensor(n_out, dtype=torch.int32)
+    rows, valid = replay_delta_plain(_t(seed), _t(src_p), _t(wr_p), n,
+                                     write_cols)
+    assert rows.dtype == torch.int32 and valid.dtype == torch.bool
+    np.testing.assert_array_equal(_np(rows), want_rows)
+    np.testing.assert_array_equal(_np(valid), want_valid)
+    rows, valid = ops.replay_delta(_t(seed[None]), _t(src_p[None]),
+                                   _t(wr_p[None]), n[None], write_cols)
+    np.testing.assert_array_equal(_np(rows[0]), want_rows)
+    np.testing.assert_array_equal(_np(valid[0]), want_valid)
+
+
+def test_replay_delta_lane_axis_and_clamp():
+    """A wave replayed in one call equals each lane replayed alone, lanes
+    with ``n_out == 0`` come out empty, ``n_out`` past ``M`` leaves valid
+    UNBOUND rows, and a source row past the table is clamped as the
+    reference's gather clamps it.  (A negative source row is outside the
+    function's domain: the reference's jnp gather wraps it and its Pallas
+    kernel matches nothing; the scheduler's provenance rows are never
+    negative.)"""
+    rng = np.random.default_rng(4)
+    b, cap, n_vars, m = 4, 32, 3, 16
+    seed = rng.integers(0, 100, (b, cap, n_vars)).astype(np.int32)
+    src = rng.integers(0, cap, (b, m)).astype(np.int32)
+    src[2, :3] = [cap, cap + 100, cap - 1]
+    written = rng.integers(0, 100, (b, m, 1)).astype(np.int32)
+    n_out = np.array([0, 5, 16, 20], np.int32)
+    rows, valid = ops.replay_delta(_t(seed), _t(src), _t(written),
+                                   _t(n_out), (1,))
+    assert rows.shape == (b, cap, n_vars) and valid.shape == (b, cap)
+    for lane in range(b):
+        want = jref.replay_delta_ref(
+            jnp.asarray(seed[lane]), jnp.asarray(src[lane]),
+            jnp.asarray(written[lane]), jnp.int32(n_out[lane]), (1,))
+        np.testing.assert_array_equal(_np(rows[lane]), np.asarray(want[0]))
+        np.testing.assert_array_equal(_np(valid[lane]), np.asarray(want[1]))
+    assert not _np(valid[0]).any() and (_np(rows[0]) == -1).all()
+
+
 # ------------------------------------------------------- the rest of the seam
 
 def test_max_run_length_per_segment_matches_reference(watdiv_small):
@@ -344,6 +523,12 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
     bounds = _t(np.zeros(10, np.int32))
     ops.delta_probe(keys, bounds, keys, bounds, bounds)
     ops.sorted_probe(bounds, bounds)
+    block = torch.zeros((2, 10, 0), dtype=torch.int32)
+    ops.fingerprint_rows(block, torch.ones((2, 10), dtype=torch.bool))
+    ops.replay_delta(torch.zeros((2, 10, 1), dtype=torch.int32),
+                     torch.zeros((2, 4), dtype=torch.int32),
+                     torch.zeros((2, 4, 0), dtype=torch.int32),
+                     torch.zeros(2, dtype=torch.int32), ())
     assert ops.LAUNCHES == before
 
 
@@ -355,6 +540,12 @@ def test_other_devices_raise():
         ops.run_probe(keys, keys, keys, keys)
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ops.delta_probe(keys, keys, keys, keys, keys)
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ops.fingerprint_rows(keys.reshape(1, 2, 2).to(torch.int32),
+                             keys[None, :2].to(torch.bool))
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ops.replay_delta(keys.reshape(1, 4, 1), keys[:1], keys[:1],
+                         keys[:1], ())
     with pytest.raises(ValueError, match="side"):
         ops.searchsorted(keys, keys, side="middle")
 
@@ -368,6 +559,11 @@ def test_kernel_wrappers_reject_cpu_tensors():
     b = k.to(torch.int32)
     with pytest.raises(ValueError, match="CUDA device"):
         delta_probe_cuda(k, b, k, b, b)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fingerprint_rows_cuda(b.reshape(1, 2, 2), b[None, :2].to(torch.bool))
+    with pytest.raises(ValueError, match="CUDA device"):
+        replay_delta_cuda(b.reshape(1, 4, 1), b[None, :2], b[None, :2, None],
+                          b[:1], (0,))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
