@@ -49,8 +49,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    rows, overflow and six stats must equal the serial
    ``QueryEngine.run`` on the card; the second drain must replay units
    (the replay kernel) and no all-hit wave may pull a table to the host
-   beyond an overflow retire.  Then the same stream with the cache and
-   collapsing off through ``QueryEngine.run_load``, TPF / brTPF /
+   beyond an overflow retire.  Then the same stream with collapsing off
+   and the cache on, drained twice (240 jobs in waves of 8 lanes that
+   share keys; the fingerprint on such waves in both drains, the replay
+   in the second), and with the cache and collapsing off through
+   ``QueryEngine.run_load``, TPF / brTPF /
    endpoint with 4 clients, and a 1% write window submitted while the
    stream is pending: every response equals the serial engine on the
    post-write store (twice), cache entries and planner marks over
@@ -485,16 +488,25 @@ def scheduler_kernel_phase(torch, np, cuda):
     fp_ms = cuda_ms(torch, lambda: fingerprint_rows_cuda(block, valid))
     fp_plain = cuda_ms(torch, lambda: fingerprint_rows_plain(block, valid))
     n_valid = int(mask.sum())
-    # bytes: every value and validity byte once, the digests out; ops: the
-    # hash of a valid row (10 per column, 18 for the position, 40 for the
-    # four salted terms and sums)
-    fp_bound, fp_by = bound(lanes * cap * (n_cols * 4 + 1) + lanes * 16,
+    # bytes: every validity byte, the values of the valid rows only (the
+    # kernel reads no other) counted in the 32-byte sectors that hold
+    # them, and the digests out; ops: the hash of a valid row (10 per
+    # column, 18 for the position, 40 for the four salted terms and sums)
+    row_bytes = n_cols * 4
+    first = np.flatnonzero(mask.ravel()) * row_bytes
+    touched = np.zeros(-(-lanes * cap * row_bytes // SECTOR_BYTES), bool)
+    for off in (*range(0, row_bytes, SECTOR_BYTES), row_bytes - 1):
+        touched[(first + off) // SECTOR_BYTES] = True
+    fp_values = int(touched.sum()) * SECTOR_BYTES
+    fp_bound, fp_by = bound(lanes * cap + fp_values + lanes * 16,
                             n_valid * (10 * n_cols + 58))
     print(f"fingerprint_rows: {lanes} lanes x {cap} rows x {n_cols} cols, "
           f"{n_valid} valid (prefixes {lens[:4]} + random, one non-prefix "
           f"mask), max_abs_err {fp_err}, equal to the host twin; kernel "
           f"{fp_ms:.4f} ms, plain {fp_plain:.4f} ms, bound {fp_bound:.4f} ms "
-          f"({fp_by}); library: none (no PyTorch call computes this hash)")
+          f"({fp_by}: {lanes * cap} mask bytes, {fp_values} value bytes in "
+          f"the sectors of the valid rows, the digests); library: none (no "
+          f"PyTorch call computes this hash)")
 
     # ---- replay: V = 6 columns, W = 2 written, M = cap source rows
     n_vars, write_cols = 6, (4, 1)
@@ -539,13 +551,13 @@ def scheduler_kernel_phase(torch, np, cuda):
           f"replay; the port never calls it)")
     return [
         {"name": "fingerprint_rows", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/fingerprint.cu",
+         "source": "src/repro_torch/kernels/csrc/fingerprint_rows.cu",
          "replaces": "src/repro/kernels/fingerprint.py:99",
          "launches": 0, "max_abs_err": fp_err, "ms": fp_ms,
          "plain_ms": fp_plain, "bound_ms": fp_bound, "bound_by": fp_by,
          "library_ms": None},
         {"name": "replay_delta", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/replay.cu",
+         "source": "src/repro_torch/kernels/csrc/replay_delta.cu",
          "replaces": "src/repro/kernels/replay.py:100",
          "launches": 0, "max_abs_err": rp_err, "ms": rp_ms,
          "plain_ms": rp_plain, "bound_ms": rp_bound, "bound_by": rp_by,
@@ -561,7 +573,8 @@ def serving_phase(torch, np, core, store, loads, cuda):
     from repro_torch.rdf.writes import WriteFeed
 
     class Logged(core.QueryScheduler):
-        """Records each wave's (steps, host pulls, retries) deltas."""
+        """Records each wave's (steps, host pulls, retries) deltas, its
+        job count, and its fingerprint and replay launches."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
@@ -569,11 +582,15 @@ def serving_phase(torch, np, core, store, loads, cuda):
 
         def _run_wave(self, jobs, results):
             m = self.metrics
-            before = (m.steps, m.host_block_pulls, m.retries)
+            before = (m.steps, m.host_block_pulls, m.retries,
+                      ops.LAUNCHES["fingerprint_rows"],
+                      ops.LAUNCHES["replay_delta"])
             out = super()._run_wave(jobs, results)
             self.wave_log.append((m.steps - before[0],
                                   m.host_block_pulls - before[1],
-                                  m.retries - before[2]))
+                                  m.retries - before[2], len(jobs),
+                                  ops.LAUNCHES["fingerprint_rows"] - before[3],
+                                  ops.LAUNCHES["replay_delta"] - before[4]))
             return out
 
     def sync():
@@ -624,7 +641,7 @@ def serving_phase(torch, np, core, store, loads, cuda):
         hold(stream, served, want, f"drain {d}")
         delta = {k: v - m0[k] for k, v in sched.metrics.as_dict().items()}
         all_hit = [w for w in sched.wave_log[n_waves:] if w[0] == 0]
-        check(all(pulls == retries for _, pulls, retries in all_hit),
+        check(all(pulls == retries for _, pulls, retries, *_ in all_hit),
               f"drain {d}: all-hit waves pull no table beyond retires")
         print(f"drain {d}: {wall:.3f} s = {len(stream) / wall:.1f} "
               f"requests/s; {delta}; {len(all_hit)} of "
@@ -645,6 +662,40 @@ def serving_phase(torch, np, core, store, loads, cuda):
     check(sched.cache.stats.hits > 0, "the cache served hits")
     print(f"serving path (drains 1-2) kernel launches {launches}; drain 3 "
           f"{ {k: v - launches[k] for k, v in ops.LAUNCHES.items()} }")
+
+    # ---- cache on, collapse off: 240 jobs in waves of 8, drained twice;
+    # the digest and the replay run over 8 lanes that share keys
+    wide = Logged(store, cfg, core.SchedulerConfig(
+        lanes=LANES, collapse_duplicates=False), device=cuda)
+    for d in (1, 2):
+        m0, n_waves = wide.metrics.as_dict(), len(wide.wave_log)
+        t0 = time.perf_counter()
+        served = wide.serve(stream)
+        sync()
+        wall = time.perf_counter() - t0
+        hold(stream, served, want, f"collapse off, drain {d}")
+        delta = {k: v - m0[k] for k, v in wide.metrics.as_dict().items()}
+        log = wide.wave_log[n_waves:]
+        fp8 = sum(fp for *_, n, fp, _ in log if n == LANES)
+        rp8 = sum(rp for *_, n, _, rp in log if n == LANES)
+        check(delta["jobs"] == len(stream), f"collapse off, drain {d}: one "
+              f"job per request")
+        check(fp8 > 0, f"collapse off, drain {d}: fingerprint_rows launched "
+              f"on {LANES}-lane waves")
+        if d == 2:
+            check(delta["steps_skipped"] > 0 and rp8 > 0,
+                  f"collapse off, drain 2: replay_delta launched on "
+                  f"{LANES}-lane waves")
+        print(f"cache on, collapse off, drain {d}: {wall:.3f} s = "
+              f"{len(stream) / wall:.1f} requests/s; {delta}; "
+              f"{sum(n == LANES for _, _, _, n, _, _ in log)} of {len(log)} "
+              f"waves {LANES} jobs wide, on which fingerprint_rows launched "
+              f"{fp8} and replay_delta {rp8} times; hit rate "
+              f"{wide.cache.stats.hit_rate:.4f} (hits {wide.cache.stats.hits}"
+              f", shared {wide.cache.stats.shared_hits}, misses "
+              f"{wide.cache.stats.misses})")
+    check(wide.cache.stats.shared_hits > 0,
+          "collapse off: lanes of one wave shared a key")
 
     # ---- cache off, collapse off, through QueryEngine.run_load
     eng_off = core.QueryEngine(store, cfg, device=cuda)

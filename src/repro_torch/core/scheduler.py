@@ -29,8 +29,8 @@ clients and turns it into device work:
    consults the star-fragment cache (``core/fragcache.py``) with the
    digest-form key (``server.unit_digest_key``, tagged with the store
    epoch): the Omega block never goes to the host just to be hashed into
-   a key.  Replay runs on the device too (``stepper.replay_step`` /
-   ``kops.replay_delta``): when every active lane hits, the cached
+   a key.  Replay runs on the device too (one ``kops.replay_delta``
+   launch per wave): when every active lane hits, the cached
    fragment deltas — the small objects — are uploaded and scattered onto
    the lanes' seed tables, so an all-hit wave pulls **no** table to the
    host (``SchedMetrics.host_block_pulls`` counts the exceptions: a miss
@@ -591,7 +591,8 @@ class QueryScheduler:
             status: dict[int, tuple[str, object]] = {}
             keys: dict[int, tuple] = {}
             if scfg.use_cache:
-                d = stepper.digest_step(io.read_cols)(rows_d, valid_d).tolist()
+                d = stepper.digest_step(rows_d, valid_d,
+                                        io.read_cols).tolist()
                 first_of: dict[tuple, int] = {}
                 for j in active:
                     cvals = tuple(int(consts[j, i]) for i in io.const_idx)
@@ -667,7 +668,7 @@ class QueryScheduler:
                                                 int(peak_np[j]), n_in[j])
             else:
                 # every active lane hit: replay the cached deltas on the
-                # device (stepper.replay_step / kops.replay_delta).  The
+                # device (kops.replay_delta, one launch per wave).  The
                 # uploaded delta is the small object — the lanes' Omega
                 # blocks never cross to the host, so an all-hit wave adds
                 # zero host_block_pulls (the invariant the tests pin).
@@ -701,10 +702,10 @@ class QueryScheduler:
                         if n_w:
                             wr_h[j, :e.n_out] = e.written
                     nout_h[j] = e.n_out
-                rows_d, valid_d = stepper.replay_step(io.write_cols)(
+                rows_d, valid_d = kops.replay_delta(
                     rows_d, torch.from_numpy(src_h).to(device),
                     torch.from_numpy(wr_h).to(device),
-                    torch.from_numpy(nout_h).to(device))
+                    torch.from_numpy(nout_h).to(device), io.write_cols)
                 for j, e in live.items():
                     ovf[j] = bool(ovf[j]) | e.overflow
                     counts[j] = e.n_out

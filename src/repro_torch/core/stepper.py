@@ -20,10 +20,8 @@ these are plain calls, so there is no step cache.
 - ``digest_step``      — the wave fingerprint: one ``kops.fingerprint_rows``
   launch over every lane's read columns, so the fragment cache is
   consulted with a 16-byte digest per lane instead of a host pull of the
-  Omega block.
-- ``replay_step``      — the wave-wide cache-hit replay: one
-  ``kops.replay_delta`` launch scatters the cached deltas onto the lanes'
-  seed tables, so all-hit waves never pull tables to the host.
+  Omega block.  (The wave-wide cache-hit replay is one
+  ``kops.replay_delta`` call, made by the scheduler directly.)
 - ``reseat``           — capacity regrow/shrink of a compacted table
   (resumable overflow grows exactly one unit's table; the valid prefix is
   preserved, the new tail is UNBOUND-filled).
@@ -99,36 +97,19 @@ def serial_unit_step(up: UnitPlan, radix: int, logn: int | None = None):
     return step
 
 
-def digest_step(read_cols: tuple[int, ...]):
-    """The wave fingerprint: ``fn(rows[B, cap, V], valid[B, cap]) ->
-    int64[B, 4]``, the digest of each lane's valid rows restricted to
-    ``read_cols`` (a zero-width block when there are none), in one
-    ``kops.fingerprint_rows`` call — the device half of the digest-first
-    cache keys (host twin: ``ref.fingerprint_prefix_np``)."""
-    cols = tuple(read_cols)
-
-    def fn(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        if cols:
-            idx = torch.tensor(cols, dtype=torch.int64, device=rows.device)
-            block = rows.index_select(2, idx)
-        else:
-            block = rows.new_empty((rows.shape[0], rows.shape[1], 0))
-        return kops.fingerprint_rows(block, valid)
-
-    return fn
-
-
-def replay_step(write_cols: tuple[int, ...]):
-    """The wave-wide cache-hit replay: ``fn(rows[B, cap, V], src[B, M],
-    written[B, M, W], n_out[B]) -> (rows, valid)`` in one
-    ``kops.replay_delta`` call.  Lanes with ``n_out == 0`` (padding,
-    retired, negative fragments) come out empty."""
-    cols = tuple(write_cols)
-
-    def fn(rows, src, written, n_out):
-        return kops.replay_delta(rows, src, written, n_out, cols)
-
-    return fn
+def digest_step(rows: torch.Tensor, valid: torch.Tensor,
+                read_cols: tuple[int, ...]) -> torch.Tensor:
+    """The wave fingerprint: ``int64[B, 4]``, the digest of each lane's
+    valid rows of ``rows[B, cap, V]`` restricted to ``read_cols`` (a
+    zero-width block when there are none), in one ``kops.fingerprint_rows``
+    call — the device half of the digest-first cache keys (host twin:
+    ``ref.fingerprint_prefix_np``)."""
+    if read_cols:
+        idx = torch.tensor(read_cols, dtype=torch.int64, device=rows.device)
+        block = rows.index_select(2, idx)
+    else:
+        block = rows.new_empty((rows.shape[0], rows.shape[1], 0))
+    return kops.fingerprint_rows(block, valid)
 
 
 def reseat(rows: torch.Tensor, valid: torch.Tensor, new_cap: int

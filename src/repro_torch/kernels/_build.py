@@ -28,17 +28,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-KERNELS = ("sorted_probe", "run_probe", "delta_probe", "fingerprint",
-           "replay")
+KERNELS = ("sorted_probe", "run_probe", "delta_probe", "fingerprint_rows",
+           "replay_delta")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-#: Kernel launches by name since the counts were last set to 0 (the
-#: kernel of ``fingerprint.cu`` counts as ``fingerprint_rows``, that of
-#: ``replay.cu`` as ``replay_delta``: the names of the ops they back).
-LAUNCHES: dict[str, int] = {name: 0 for name in (
-    "sorted_probe", "run_probe", "delta_probe", "fingerprint_rows",
-    "replay_delta")}
+#: Kernel launches by name since the counts were last set to 0.
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -17,20 +17,21 @@
 // What it computes, not how the TPU did it: the Pallas body streams row
 // tiles through one core and carries the four sums from grid step to
 // grid step.  Here blocks run in parallel in no order, so the sums are
-// reduced across blocks with atomics.  fingerprint_kernel has one
+// reduced across blocks with atomics.  fingerprint_rows_kernel has one
 // thread per row of one lane (grid (ceil(n / 256), B)); each warp
 // reduces its rows' four salted terms and its valid count with shuffles,
 // and lane 0 of the warp adds them into the zeroed accumulator acc[B][5]
 // with one atomicAdd each.  Wrapping uint32 addition is associative and
 // commutative, so the digest is bit-exact whatever order the atomics
-// land in.  fingerprint_finalize_kernel then applies the n-mix, one
+// land in.  fingerprint_rows_finalize_kernel then applies the n-mix, one
 // thread per lane and salt; it runs for n == 0 too (the empty digest is
 // mix32(0 ^ SALT_s)), where the row kernel is not launched.
 //
-// What bounds it on this card: bytes.  Each row is read once (4 C bytes
-// of values and 1 byte of validity): at B = 8, n = 2^20, C = 3 about
-// 109 MB, 0.033 ms at 3.35 TB/s; the hash is some 10 C + 40 integer
-// operations per row.  The C columns of a row are read by one thread
+// What bounds it on this card: bytes.  Every row's validity byte is
+// read once, and its 4 C bytes of values only where the row is valid: at
+// B = 8, n = 2^20, C = 3 at most 109 MB (every row valid), 0.033 ms at
+// 3.35 TB/s; the hash is some 10 C + 58 integer operations per valid
+// row.  The C columns of a row are read by one thread
 // (strided by C), which the L1 and L2 coalesce across the warp.
 
 #include <cstdint>
@@ -54,10 +55,10 @@ __device__ __forceinline__ unsigned mix32(unsigned x) {
   return x;
 }
 
-__global__ void fingerprint_kernel(const int32_t* __restrict__ block,
-                                   const bool* __restrict__ valid,
-                                   long long n, int n_cols,
-                                   unsigned* __restrict__ acc) {
+__global__ void fingerprint_rows_kernel(const int32_t* __restrict__ block,
+                                        const bool* __restrict__ valid,
+                                        long long n, int n_cols,
+                                        unsigned* __restrict__ acc) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
   unsigned t[5] = {0u, 0u, 0u, 0u, 0u};
@@ -78,9 +79,8 @@ __global__ void fingerprint_kernel(const int32_t* __restrict__ block,
       if (t[s]) atomicAdd(acc + b * 5 + s, t[s]);
 }
 
-__global__ void fingerprint_finalize_kernel(const unsigned* __restrict__ acc,
-                                            int lanes,
-                                            unsigned* __restrict__ out) {
+__global__ void fingerprint_rows_finalize_kernel(
+    const unsigned* __restrict__ acc, int lanes, unsigned* __restrict__ out) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= lanes * 4) return;
   const int b = k / 4, s = k % 4;
@@ -106,20 +106,20 @@ int fingerprint_rows_launch(const void* block, const void* valid,
   if (n > 0) {
     const dim3 grid((unsigned)((n + kThreads - 1) / kThreads),
                     (unsigned)lanes);
-    fingerprint_kernel<<<grid, kThreads, 0, st>>>(
+    fingerprint_rows_kernel<<<grid, kThreads, 0, st>>>(
         static_cast<const int32_t*>(block), static_cast<const bool*>(valid),
         n, (int)n_cols, static_cast<unsigned*>(acc));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const int k = (int)lanes * 4;
-  fingerprint_finalize_kernel<<<(k + 127) / 128, 128, 0, st>>>(
+  fingerprint_rows_finalize_kernel<<<(k + 127) / 128, 128, 0, st>>>(
       static_cast<const unsigned*>(acc), (int)lanes,
       static_cast<unsigned*>(out));
   return (int)cudaGetLastError();
 }
 
-const char* fingerprint_error_string(int code) {
+const char* fingerprint_rows_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -45,14 +45,14 @@ struct ColMap {
   int w[kMaxVars];
 };
 
-__global__ void replay_kernel(const int32_t* __restrict__ seed,
-                              const int32_t* __restrict__ src,
-                              const int32_t* __restrict__ written,
-                              const int32_t* __restrict__ n_out,
-                              long long cap, int n_vars, long long m,
-                              int n_w, ColMap map, long long total,
-                              int32_t* __restrict__ out,
-                              bool* __restrict__ valid) {
+__global__ void replay_delta_kernel(const int32_t* __restrict__ seed,
+                                   const int32_t* __restrict__ src,
+                                   const int32_t* __restrict__ written,
+                                   const int32_t* __restrict__ n_out,
+                                   long long cap, int n_vars, long long m,
+                                   int n_w, ColMap map, long long total,
+                                   int32_t* __restrict__ out,
+                                   bool* __restrict__ valid) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (e >= total) return;
   const int c = (int)(e % n_vars);
@@ -98,7 +98,7 @@ int replay_delta_launch(const void* seed, const void* src,
   const long long total = lanes * cap * n_vars;
   if (total == 0) return (int)cudaSuccess;
   const long long blocks = (total + kThreads - 1) / kThreads;
-  replay_kernel<<<(unsigned)blocks, kThreads, 0,
+  replay_delta_kernel<<<(unsigned)blocks, kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(seed), static_cast<const int32_t*>(src),
       static_cast<const int32_t*>(written),
@@ -107,7 +107,7 @@ int replay_delta_launch(const void* seed, const void* src,
   return (int)cudaGetLastError();
 }
 
-const char* replay_error_string(int code) {
+const char* replay_delta_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,9 +1,10 @@
 """The wave fingerprint: a 4 x uint32 digest of each lane's valid rows.
 
-``fingerprint_rows_cuda`` launches the CUDA kernel ``csrc/fingerprint.cu``
-(one thread per row, warp shuffles and one atomic per warp and salt into
-a per-lane accumulator, then a finalize launch), which replaces the
-Pallas kernel ``repro/kernels/fingerprint.py::fingerprint_rows_pallas``.
+``fingerprint_rows_cuda`` launches the CUDA kernel
+``csrc/fingerprint_rows.cu`` (one thread per row, warp shuffles and one
+atomic per warp and salt into a per-lane accumulator, then a finalize
+launch), which replaces the Pallas kernel
+``repro/kernels/fingerprint.py::fingerprint_rows_pallas``.
 ``fingerprint_rows_plain`` is the same function in plain PyTorch
 (``ref.fingerprint_rows_ref``, int64 arithmetic masked to 32 bits), the
 CPU path and the kernel's ground truth; ``ref.fingerprint_prefix_np`` is
@@ -33,7 +34,7 @@ def fingerprint_rows_plain(block: torch.Tensor, valid: torch.Tensor
 
 
 def _entry():
-    fn = _build.library("fingerprint").fingerprint_rows_launch
+    fn = _build.library("fingerprint_rows").fingerprint_rows_launch
     if fn.argtypes is None:
         p, ll = ctypes.c_void_p, ctypes.c_longlong
         fn.argtypes = [p, p, ll, ll, ll, p, p, p]
@@ -72,6 +73,6 @@ def fingerprint_rows_cuda(block: torch.Tensor, valid: torch.Tensor
             stream = torch.cuda.current_stream(dev).cuda_stream
             code = fn(block.data_ptr(), valid.data_ptr(), lanes, n, n_cols,
                       acc.data_ptr(), out.data_ptr(), stream)
-        _build.check("fingerprint", code)
+        _build.check("fingerprint_rows", code)
         _build.LAUNCHES["fingerprint_rows"] += 1
     return out.to(torch.int64) & 0xFFFFFFFF

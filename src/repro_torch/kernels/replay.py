@@ -1,8 +1,8 @@
 """The cache-hit replay: cached fragment deltas onto the lanes' seeds.
 
-``replay_delta_cuda`` launches the CUDA kernel ``csrc/replay.cu`` (a
-plain row gather, one thread per output element, into a fresh table),
-which replaces the Pallas kernel ``repro/kernels/replay.py::
+``replay_delta_cuda`` launches the CUDA kernel ``csrc/replay_delta.cu``
+(a plain row gather, one thread per output element, into a fresh
+table), which replaces the Pallas kernel ``repro/kernels/replay.py::
 replay_delta_pallas``.  ``replay_delta_plain`` is the same function in
 plain PyTorch (``ref.replay_delta_ref``), the CPU path and the kernel's
 ground truth; ``core.fragcache.replay`` is its numpy twin.
@@ -37,7 +37,7 @@ def replay_delta_plain(seed_rows: torch.Tensor, src: torch.Tensor,
 
 
 def _entry():
-    fn = _build.library("replay").replay_delta_launch
+    fn = _build.library("replay_delta").replay_delta_launch
     if fn.argtypes is None:
         p, ll = ctypes.c_void_p, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, ll, ll, ll, ll, ll,
@@ -93,6 +93,6 @@ def replay_delta_cuda(seed_rows: torch.Tensor, src: torch.Tensor,
                       written.data_ptr(), n_out.data_ptr(), b, cap, n_vars,
                       m, n_w, (ctypes.c_int * n_vars)(*wmap),
                       rows.data_ptr(), valid.data_ptr(), stream)
-        _build.check("replay", code)
+        _build.check("replay_delta", code)
         _build.LAUNCHES["replay_delta"] += 1
     return rows, valid

@@ -17,7 +17,7 @@ work while the registry stays the single source of truth.
 ``PlannerStats``, ``CacheStats`` and ``SchedMetrics`` are the views the
 engine, the fragment cache and the scheduler use; a scheduler mounts all
 three on one registry, so one ``snapshot`` covers the serving stack.
-``reset`` zeroes a prefix (``FragmentCache.clear``).
+A view's ``reset`` zeroes its own fields (``FragmentCache.clear``).
 
 This module is dependency-free (no torch, no numpy) so importing it from
 the core modules costs nothing.
@@ -85,16 +85,6 @@ class MetricsRegistry:
             snap[k] = h.summary()
         return snap
 
-    def reset(self, prefix: str = "") -> None:
-        """Zero out instruments under ``prefix`` (all, when empty)."""
-        if not prefix:
-            self._scalars.clear()
-            self._hists.clear()
-            return
-        for d in (self._scalars, self._hists):
-            for k in [k for k in d if k.startswith(prefix)]:
-                del d[k]
-
 
 def _view_field(key: str):
     def _get(self):
@@ -129,6 +119,7 @@ class RegistryView:
         self.registry = registry if registry is not None else MetricsRegistry()
 
     def reset(self) -> None:
+        """Zero this view's fields; other instruments keep their values."""
         for f in self._FIELDS:
             setattr(self, f, 0)
 

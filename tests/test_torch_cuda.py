@@ -314,29 +314,54 @@ def test_live_engine_on_card_matches_cpu(cuda_device):
                                          "delta_probe")) > 0
 
 
+class _WaveLog(QueryScheduler):
+    """Records each wave's job count and its fingerprint and replay
+    launches."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.waves_log = []
+
+    def _run_wave(self, jobs, results):
+        fp, rp = ops.LAUNCHES["fingerprint_rows"], ops.LAUNCHES["replay_delta"]
+        out = super()._run_wave(jobs, results)
+        self.waves_log.append((len(jobs),
+                               ops.LAUNCHES["fingerprint_rows"] - fp,
+                               ops.LAUNCHES["replay_delta"] - rp))
+        return out
+
+
 def test_scheduler_on_card_matches_cpu(cuda_device, small_world):
     """A 4-client stream through the scheduler on the card, drained cold
-    and warm: every response equals the CPU scheduler's (rows and all ten
-    stats fields), and the warm drain replays waves on the card."""
+    and warm, with request collapsing on and off: every response equals
+    the CPU scheduler's (rows and all ten stats fields), the warm drain
+    replays waves on the card, and with collapsing off the digest and
+    the replay run on waves four lanes wide."""
     store, loads = small_world
     qs = [q for load in ("1-star", "2-stars", "paths") for q in loads[load]]
     stream = interleave_clients(qs, 4)
     cfg = EngineConfig(interface="spf", cap=256)
-    card = QueryScheduler(store, cfg, SchedulerConfig(lanes=4))
-    host = QueryScheduler(store, cfg, SchedulerConfig(lanes=4),
-                          device="cpu")
-    assert card.device.type == "cuda"
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
-    for drain in ("cold", "warm"):
-        skipped = card.metrics.steps_skipped
-        replays = ops.LAUNCHES["replay_delta"]
-        got, want = card.serve(stream), host.serve(stream)
-        for (gt, gs), (wt, ws) in zip(got, want):
-            assert np.array_equal(results_as_numpy(gt), results_as_numpy(wt))
-            assert tuple(int(x) for x in gs) == tuple(int(x) for x in ws)
-        assert card.metrics.as_dict() == host.metrics.as_dict(), drain
-        assert list(card.cache._entries) == list(host.cache._entries)
-    assert card.metrics.steps_skipped > skipped
-    assert ops.LAUNCHES["replay_delta"] > replays
-    assert ops.LAUNCHES["fingerprint_rows"] > 0
+    for collapse in (True, False):
+        scfg = SchedulerConfig(lanes=4, collapse_duplicates=collapse)
+        card = _WaveLog(store, cfg, scfg)
+        host = QueryScheduler(store, cfg, scfg, device="cpu")
+        assert card.device.type == "cuda"
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
+        for drain in ("cold", "warm"):
+            skipped = card.metrics.steps_skipped
+            replays = ops.LAUNCHES["replay_delta"]
+            got, want = card.serve(stream), host.serve(stream)
+            for (gt, gs), (wt, ws) in zip(got, want):
+                assert np.array_equal(results_as_numpy(gt),
+                                      results_as_numpy(wt))
+                assert tuple(int(x) for x in gs) == tuple(int(x) for x in ws)
+            assert card.metrics.as_dict() == host.metrics.as_dict(), drain
+            assert list(card.cache._entries) == list(host.cache._entries)
+        assert card.metrics.steps_skipped > skipped
+        assert ops.LAUNCHES["replay_delta"] > replays
+        assert ops.LAUNCHES["fingerprint_rows"] > 0
+        if not collapse:
+            assert card.cache.stats.shared_hits > 0
+            assert any(n == 4 and fp for n, fp, _ in card.waves_log)
+            assert any(n == 4 and rp for n, _, rp in card.waves_log)

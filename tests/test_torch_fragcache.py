@@ -443,15 +443,16 @@ def test_unit_keys_match_reference(watdiv_small):
 
 
 def test_registry_reset_clears_a_prefix():
+    """``FragmentCache.clear`` zeroes the cache's own fields (the
+    ``cache.`` prefix) on a registry it shares, and nothing else."""
     reg = MetricsRegistry()
-    stats = CacheStats(reg)
-    stats.hits += 3
+    cache = FragmentCache(registry=reg)
+    cache.stats.hits += 3
+    cache.stats.misses += 1
     reg.inc("sched.steps", 2)
-    reg.observe("cache.lat", 1.0)
-    reg.reset("cache.")
-    assert stats.hits == 0 and reg.snapshot() == {"sched.steps": 2}
-    stats.misses += 1
-    stats.reset()
-    assert stats == CacheStats() and reg.value("sched.steps") == 2
-    reg.reset()
-    assert reg.snapshot() == {}
+    reg.observe("sched.lat", 1.0)
+    cache.clear()
+    assert cache.stats == CacheStats() and len(cache) == 0
+    snap = reg.snapshot()
+    assert snap["sched.steps"] == 2 and snap["sched.lat"]["count"] == 1
+    assert all(v == 0 for k, v in snap.items() if k.startswith("cache."))
