@@ -13,13 +13,17 @@ all of them untraced (host wall clock, synchronised), and traces a
 second warm pass with ``torch.profiler``.  On the static store it also
 profiles ``chip_smoke.py``'s serving stream (240 requests from 16
 clients) through the scheduler: a cold drain, a warm drain, and the
-stream with the cache and collapsing off.  It prints, per pass:
+stream with the cache and collapsing off.  Last, it profiles the LM
+path of ``chip_smoke.py``'s phase 8: qwen2-7b at its published width
+and depth, one B = 1, S = 4096 prefill and 8 greedy decode steps at
+B = 8 against a 32768-position cache.  It prints, per pass:
 
 - the untraced and traced pass walls, the device's busy time in the
   traced pass (the sum of every kernel, copy and fill CUPTI recorded; one
   stream, so they do not overlap) and hence the device's idle share;
-- device work items (kernels, copies, fills) per query, and each probe
-  kernel's launches and share of the device time;
+- device work items (kernels, copies, fills) per query (per prefill, per
+  decoded token), and each kernel's launches and share of the device
+  time;
 - the device work items and the host-side operations that took the most
   time.
 
@@ -69,9 +73,10 @@ def main() -> int:
     loads = smoke.query_loads(g, store)
     cuda = torch.device("cuda", 0)
 
-    def trace(label, what, run_all, n_q) -> bool:
+    def trace(label, what, run_all, n_q, unit="query") -> bool:
         """Run ``run_all`` once (warm-up), once timed, once traced, and
-        print where the traced pass's time went; ``n_q`` queries each."""
+        print where the traced pass's time went; ``n_q`` of ``unit``
+        (queries, prefills, tokens) each."""
         run_all()
         t0 = time.perf_counter()
         run_all()
@@ -92,17 +97,17 @@ def main() -> int:
         items = sum(e.count for e in device)
         print(f"== {label}: {what}")
         print(f"wall untraced {untraced * 1e3:.3f} ms "
-              f"({untraced * 1e3 / n_q:.3f} ms/query), traced "
+              f"({untraced * 1e3 / n_q:.3f} ms/{unit}), traced "
               f"{traced * 1e3:.3f} ms; device busy {busy_us / 1e3:.3f} ms "
               f"= {busy_us / 1e6 / untraced:.1%} of the untraced wall, "
               f"{busy_us / 1e6 / traced:.1%} of the traced wall "
               f"(idle share {1 - busy_us / 1e6 / traced:.1%} traced)")
-        print(f"device work items: {items} ({items / n_q:.1f} per query)")
+        print(f"device work items: {items} ({items / n_q:.1f} per {unit})")
         for name in _build.KERNELS:
             mine = [e for e in device if f"{name}_kernel" in e.key]
             t = sum(_us(e, "device") for e in mine)
             n = sum(e.count for e in mine)
-            print(f"{name}: {n} launches ({n / n_q:.1f} per query), "
+            print(f"{name}: {n} launches ({n / n_q:.1f} per {unit}), "
                   f"{t / 1e3:.3f} ms = {t / busy_us:.1%} of device busy "
                   f"time")
         print("top device work by self time:")
@@ -178,7 +183,51 @@ def main() -> int:
     if not profile_pass("live", store) or \
             not profile_pass("rebuilt", rebuilt):
         return 1
-    return 0
+    del g, store, rebuilt, loads, feed
+    torch.cuda.empty_cache()
+    return 0 if lm_passes(torch, cuda, trace) else 1
+
+
+def lm_passes(torch, cuda, trace) -> bool:
+    """qwen2-7b as ``chip_smoke.py``'s phase 8 serves it: a traced warm
+    prefill, then traced passes of 8 greedy decode steps."""
+    import chip_smoke as smoke
+    from repro_torch.configs.steps import build_cell
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.serving import make_decode_step
+
+    cell = build_cell(smoke.LM_ARCH, "prefill_32k")
+    cfg = cell.model_cfg
+    gen = torch.Generator(cuda).manual_seed(smoke.SEED)
+    with torch.inference_mode():
+        model = Transformer(cfg, device=cuda, generator=gen)
+        tokens = torch.randint(0, cfg.vocab, (smoke.PREFILL_BATCH,
+                                              smoke.PREFILL_SEQ),
+                               generator=gen, device=cuda, dtype=torch.int32)
+
+        def prefill():
+            cell.fn(model, {"tokens": tokens})
+            torch.cuda.synchronize()
+
+        cache = smoke.random_cache(torch, model, smoke.DECODE_BATCH,
+                                   smoke.DECODE_CACHE, gen)
+        token = torch.randint(0, cfg.vocab, (smoke.DECODE_BATCH,),
+                              generator=gen, device=cuda, dtype=torch.int32)
+        step = make_decode_step(cell.family, cfg)
+
+        def decode():
+            greedy_decode(model, step, token, cache, smoke.DECODE_CACHE // 2,
+                          smoke.DECODE_TOKENS)
+
+        return (trace("LM prefill", f"{smoke.LM_ARCH} full width, "
+                      f"B={smoke.PREFILL_BATCH} S={smoke.PREFILL_SEQ}",
+                      prefill, 1, unit="prefill")
+                and trace("LM decode", f"{smoke.LM_ARCH} full width, "
+                          f"{smoke.DECODE_TOKENS} greedy steps at "
+                          f"B={smoke.DECODE_BATCH} against a "
+                          f"{smoke.DECODE_CACHE}-position cache", decode,
+                          smoke.DECODE_TOKENS, unit="token"))
 
 if __name__ == "__main__":
     sys.exit(main())

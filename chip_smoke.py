@@ -1,13 +1,14 @@
-"""Run the PyTorch port's SPF engine on one NVIDIA GPU and check it: over
-a static store, over the live store under writes, then serving a
-16-client stream through the scheduler.
+"""Run the PyTorch port on one NVIDIA GPU and check it: the SPF engine
+over a static store, over the live store under writes, serving a
+16-client stream through the scheduler, then the LM stack serving
+qwen2-7b at its published width and depth.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions.
-2. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together).
 3. Build the paper's 10M-triple WatDiv store (``scale=20_500``) and put
    its index on the card.
@@ -59,6 +60,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    post-write store (twice), cache entries and planner marks over
    untouched predicates carry over, and no answer holds a tombstoned
    triple.
+8. LM serving, after the store's tensors are freed: (a) the
+   flash-attention kernel against its plain version on the card over
+   the reference's sweep in float32 and bfloat16, the qwen2-7b prefill
+   shape and a D = 256 case, with the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s times at the qwen2-7b shape; (b)
+   qwen2-7b at its published width and depth (random weights from a
+   seeded generator): a B = 1, S = 4096 prefill through the
+   ``prefill_32k`` cell, which must launch the kernel exactly once per
+   layer and give finite logits, then 8 greedy decode steps (twice) at
+   B = 8 against a 32768-position cache filled on the card, which launch
+   no kernel; (c) the same model at 2 layers in float32 on the CPU
+   (plain attention) and on the card (the kernel): logits within 1e-3
+   and the same argmax at every position.
 
 The line before the last is the kernel report as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Times are CUDA-event means over
@@ -68,6 +82,7 @@ query, write or upload (engine, store).
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -88,6 +103,21 @@ SCALAR_OPS_S = 67e12
 SECTOR_BYTES = 32
 CLIENTS = 16  # the serving phase's simulated clients
 LANES = 8  # the serving phase's wave width
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W): the
+# least time of attention's products, whatever units a kernel uses
+BF16_TENSOR_FLOPS_S = 989e12
+LM_ARCH = "qwen2-7b"  # phase 8: served at its published width and depth
+PREFILL_BATCH, PREFILL_SEQ = 1, 4096  # prefill_32k cut to one card
+DECODE_BATCH, DECODE_CACHE, DECODE_TOKENS = 8, 32768, 8  # decode_32k cut
+PARITY_LAYERS, PARITY_SEQ = 2, 256  # phase 8c: card against CPU, float32
+PARITY_TOL = 1e-3  # max-abs on logits of magnitude ~1 (float32 both)
+# the reference's flash-attention sweep (tests/test_kernels.py): (B, Hq,
+# Hkv, Sq, Sk, D), causal; each run in float32 and bfloat16
+ATTN_SWEEP = [((1, 2, 2, 128, 128, 64), True), ((2, 4, 2, 256, 256, 64), True),
+              ((1, 8, 1, 100, 100, 32), False),
+              ((1, 2, 1, 64, 192, 128), False), ((1, 4, 4, 1, 300, 64), False),
+              ((1, 2, 2, 33, 65, 16), True)]
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # max-abs, N(0, 1) inputs
 
 
 def check(ok: bool, what: str) -> None:
@@ -785,6 +815,231 @@ def serving_phase(torch, np, core, store, loads, cuda):
 
 
 
+def attention_operands(torch, gen, shape, dtype):
+    """q, k, v of ``shape`` = (B, Hq, Hkv, Sq, Sk, D), N(0, 1) in ``dtype``
+    on the generator's card, as the layers hand them over: transposed
+    views of ``[B, S, H, D]`` projections."""
+    b, hq, hkv, sq, sk, d = shape
+
+    def one(h, s):
+        x = torch.randn((b, s, h, d), generator=gen, device=gen.device)
+        return x.to(dtype).transpose(1, 2)
+
+    return one(hq, sq), one(hkv, sk), one(hkv, sk)
+
+
+def attention_kernel_phase(torch, cuda):
+    """The flash-attention kernel against its plain version on the card:
+    the reference's sweep in both dtypes, the qwen2-7b prefill shape and a
+    gemma-7b-shaped D = 256 case; times at the qwen2-7b shape beside the
+    bound and ``scaled_dot_product_attention``.  Returns the report
+    entry."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    gen = torch.Generator(cuda).manual_seed(SEED + 3)
+    cfg = lm_config()
+    qwen = (PREFILL_BATCH, cfg.n_heads, cfg.n_kv, PREFILL_SEQ, PREFILL_SEQ,
+            cfg.head_dim)
+    gemma = (1, 16, 16, PREFILL_SEQ, PREFILL_SEQ, 256)
+    cases = [(shape, causal, dt) for shape, causal in ATTN_SWEEP
+             for dt in ("float32", "bfloat16")]
+    cases += [(qwen, True, "bfloat16"), (gemma, True, "bfloat16")]
+    worst = 0.0
+    for shape, causal, dt in cases:
+        q, k, v = attention_operands(torch, gen, shape, getattr(torch, dt))
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"attention output type {shape}")
+        err = float((got.float() - want.float()).abs().max())
+        check(err < ATTN_TOL[dt], f"flash_attention kernel == plain within "
+              f"{ATTN_TOL[dt]} at {shape} causal={causal} {dt}: {err}")
+        print(f"flash_attention {shape} causal={int(causal)} {dt}: "
+              f"max_abs_err {err:.3g}")
+        if dt == "bfloat16":
+            worst = max(worst, err)
+
+    q, k, v = attention_operands(torch, gen, qwen, torch.bfloat16)
+    fa_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v), iters=10)
+    fa_plain = cuda_ms(torch, lambda: flash_attention_plain(q, k, v),
+                       iters=5)
+    fa_lib = cuda_ms(torch, lambda: torch.nn.functional.
+                     scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True), iters=10)
+    b, hq, hkv, sq, sk, d = qwen
+    flops = 4 * b * hq * sq * sk * d / 2  # causal: half the scores
+    nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+    t_ops = flops / BF16_TENSOR_FLOPS_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    fa_bound, fa_by = ((t_ops, "operations") if t_ops >= t_bytes
+                       else (t_bytes, "bytes"))
+    print(f"flash_attention {LM_ARCH} prefill {qwen} bf16 causal: kernel "
+          f"{fa_ms:.4f} ms ({flops / fa_ms / 1e9:.1f} TFLOP/s), plain "
+          f"{fa_plain:.4f} ms, scaled_dot_product_attention {fa_lib:.4f} ms, "
+          f"bound {fa_bound:.4f} ms ({fa_by}: {flops:.3g} flops at the bf16 "
+          f"tensor peak; {nbytes / 1e6:.1f} MB in {t_bytes:.4f} ms)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:121",
+            "launches": 0, "max_abs_err": worst, "ms": fa_ms,
+            "plain_ms": fa_plain, "bound_ms": fa_bound, "bound_by": fa_by,
+            "library_ms": fa_lib}
+
+
+def random_cache(torch, model, batch: int, seq: int, gen) -> dict:
+    """A KV cache of ``seq`` positions with ``data.synth``'s distribution
+    (normal times 0.02), drawn one layer at a time on the card: the
+    synthetic batch would draw it as float64 on the host, ~60 GB at
+    phase 8's decode shape."""
+    cache = model.init_cache(batch, seq)
+    for t in cache.values():
+        for layer in t:
+            layer.copy_(torch.randn(layer.shape, generator=gen,
+                                    device=layer.device) * 0.02)
+    return cache
+
+
+def lm_config(**overrides):
+    """The served model's config, as its cells build it."""
+    from repro_torch.configs.steps import build_cell
+
+    return build_cell(LM_ARCH, "prefill_32k", overrides=overrides).model_cfg
+
+
+def lm_serving_phase(torch, cuda):
+    """qwen2-7b at its published width and depth on the card: a prefill
+    through the ``prefill_32k`` cell, then greedy decode steps as the
+    launcher runs them, each with the launch counts set to 0 just before
+    and read just after.  Returns the prefill's launch counts."""
+    from repro_torch.configs.steps import build_cell
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.serving import make_decode_step
+
+    cell = build_cell(LM_ARCH, "prefill_32k")
+    cfg = cell.model_cfg
+    gen = torch.Generator(cuda).manual_seed(SEED)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        model = Transformer(cfg, device=cuda, generator=gen)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.head_dim}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters "
+              f"({n_params * 2 / 1e9:.2f} GB bf16) built on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(n_params > 7.0e9, "qwen2-7b at its published width")
+
+        tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                               generator=gen, device=cuda, dtype=torch.int32)
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        logits = cell.fn(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab),
+              "prefill logits shape")
+        check(bool(torch.isfinite(logits).all()), "prefill logits finite")
+        check(launches["flash_attention"] == cfg.n_layers
+              and sum(launches.values()) == cfg.n_layers,
+              f"one attention launch per layer and no other kernel: "
+              f"{launches}")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logits = cell.fn(model, {"tokens": tokens})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"prefill B={PREFILL_BATCH} S={PREFILL_SEQ}: logits "
+              f"{tuple(logits.shape)} finite, launches {launches}; wall "
+              f"{cold * 1e3:.1f} ms cold, warm "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms")
+        del logits
+
+        t0 = time.perf_counter()
+        cache = random_cache(torch, model, DECODE_BATCH, DECODE_CACHE, gen)
+        token = torch.randint(0, cfg.vocab, (DECODE_BATCH,), generator=gen,
+                              device=cuda, dtype=torch.int32)
+        torch.cuda.synchronize()
+        cache_gb = sum(t.numel() * t.element_size()
+                       for t in cache.values()) / 1e9
+        print(f"decode: cache {DECODE_BATCH} x {DECODE_CACHE} positions, "
+              f"{cache_gb:.2f} GB bf16, filled on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+        step = make_decode_step(cell.family, cfg)
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
+        secs = []
+        for r in range(2):
+            token, logits, dt = greedy_decode(
+                model, step, token, cache,
+                DECODE_CACHE // 2 + r * DECODE_TOKENS, DECODE_TOKENS)
+            secs.append(dt)
+            check(tuple(logits.shape) == (DECODE_BATCH, cfg.vocab)
+                  and bool(torch.isfinite(logits).all()),
+                  "decode logits finite, [B, V]")
+        check(sum(ops.LAUNCHES.values()) == 0,
+              f"decode launched no kernel: {ops.LAUNCHES}")
+        print(f"decode: {DECODE_TOKENS} greedy steps, batch {DECODE_BATCH}, "
+              f"twice: {secs[0] * 1e3 / DECODE_TOKENS:.2f} ms/token (first), "
+              f"{secs[1] * 1e3 / DECODE_TOKENS:.2f} ms/token (second); peak "
+              f"{torch.cuda.max_memory_allocated(cuda) / 1e9:.1f} GB "
+              f"allocated")
+        del model, cache, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_parity_phase(torch, cuda):
+    """qwen2-7b at full width with ``PARITY_LAYERS`` layers in float32, the
+    same weights on the CPU (plain attention) and on the card (the
+    kernel): logits within ``PARITY_TOL`` and the same argmax at every
+    position."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import Transformer
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 products on the card in full float32 (no TF32)")
+    cfg = lm_config(n_layers=PARITY_LAYERS, dtype="float32")
+    gen = torch.Generator("cpu").manual_seed(SEED)
+    with torch.inference_mode():
+        model = Transformer(cfg, device="cpu", generator=gen)
+        tokens = torch.randint(0, cfg.vocab, (1, PARITY_SEQ), generator=gen,
+                               dtype=torch.int32)
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        on_cpu = model(tokens)
+        t_cpu = time.perf_counter() - t0
+        check(sum(ops.LAUNCHES.values()) == 0, "no kernel on the CPU path")
+        model.to(cuda)
+        on_card = model(tokens.to(cuda))
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["flash_attention"] == PARITY_LAYERS,
+              "the card's forward went through the kernel")
+        on_card = on_card.cpu()
+        err = float((on_card - on_cpu).abs().max())
+        top2 = on_cpu.topk(2, dim=-1).values
+        gap = float((top2[..., 0] - top2[..., 1]).min())
+        same = int((on_card.argmax(-1) == on_cpu.argmax(-1)).sum())
+        print(f"parity: {LM_ARCH} full width, {PARITY_LAYERS} layers, "
+              f"float32, S={PARITY_SEQ}: card vs CPU logits max_abs_err "
+              f"{err:.3g} (tolerance {PARITY_TOL}, |logits| max "
+              f"{float(on_cpu.abs().max()):.3g}), argmax equal at {same} of "
+              f"{PARITY_SEQ} positions (smallest top-2 gap {gap:.3g}); CPU "
+              f"forward {t_cpu:.1f} s")
+        check(err <= PARITY_TOL, "card logits == CPU logits within tolerance")
+        check(same == PARITY_SEQ, "the same argmax at every position")
+        del model, on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -967,6 +1222,18 @@ def main() -> int:
               f"path")
     report += sched_report
     phases["7 serving"] = time.perf_counter() - t_phase
+
+    # ---- 8. LM serving: qwen2-7b on the card, its attention kernel
+    t_phase = time.perf_counter()
+    del dev, store, g, loads, on_card, on_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry = attention_kernel_phase(torch, cuda)
+    lm_launches = lm_serving_phase(torch, cuda)
+    entry["launches"] = lm_launches["flash_attention"]
+    report.append(entry)
+    lm_parity_phase(torch, cuda)
+    phases["8 LM serving"] = time.perf_counter() - t_phase
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total {time.perf_counter() - t_start:.1f}")

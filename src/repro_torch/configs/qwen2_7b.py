@@ -1,0 +1,7 @@
+"""Config for --arch qwen2-7b (see registry.py for the exact published numbers)."""
+from repro_torch.configs.registry import get
+
+ENTRY = get("qwen2-7b")
+FULL = ENTRY.full
+SMOKE = ENTRY.smoke
+SHAPES = ENTRY.shapes

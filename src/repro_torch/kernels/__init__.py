@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the SPF engine and scheduler, and their seam.
+"""Hand-written Hopper kernels for the SPF engine, the scheduler and the
+model stack, and their seam.
 
 Layer map (bottom-up):
 
@@ -18,6 +19,10 @@ Layer map (bottom-up):
 - replay         — the scheduler's cache-hit replay: cached deltas
                    gathered onto the lanes' seed tables, one thread per
                    output element
+- flash_attention — attention forward for the transformer: one CTA per
+                   batch x query head and block of 64 query rows, K/V
+                   tiles in shared memory, the online softmax in
+                   registers, f32 FMAs on CUDA cores
 - ref            — plain PyTorch versions (the CPU path and the kernels'
                    ground truth)
 - ops            — THE dispatch layer: a CUDA tensor runs the kernel, a

@@ -12,7 +12,7 @@ failed launch raises; nothing here falls back to another path.
 
 ``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its probes
-went through the kernels.
+and its attention went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 KERNELS = ("sorted_probe", "run_probe", "delta_probe", "fingerprint_rows",
-           "replay_delta")
+           "replay_delta", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

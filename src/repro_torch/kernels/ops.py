@@ -1,9 +1,11 @@
-"""The kernel dispatch layer: every kernel primitive of the engine, one seam.
+"""The kernel dispatch layer: every kernel primitive of the engine and the
+model stack, one seam.
 
 The query engine (``core/server.py``, ``core/bindings.py``), the capacity
-planner and the scheduler's wave steps (``core/stepper.py``) route their
-primitives through these wrappers; nothing above this layer names a
-kernel or picks a path.
+planner, the scheduler's wave steps (``core/stepper.py``) and the
+transformer's attention (``models/layers.py``) route their primitives
+through these wrappers; nothing above this layer names a kernel or picks
+a path.
 
 Dispatch policy
 ---------------
@@ -16,12 +18,13 @@ digest block is a kernel launch too.  The kernels take the widths their
 callers pass — int64 keys and queries (and int32 tombstone positions with
 int32 queries), int32 or int64 run values with int64 targets, int64
 insert keys with int32 tombstone positions, int32 tables with bool
-validity and int32 deltas — and raise on any other.
+validity and int32 deltas, float32 or bfloat16 attention operands — and
+raise on any other.
 
 Launches are counted in ``LAUNCHES`` (``LAUNCHES["sorted_probe"]``,
 ``["run_probe"]``, ``["delta_probe"]``, ``["fingerprint_rows"]``,
-``["replay_delta"]``), one per kernel launch; the CPU path never touches
-them.
+``["replay_delta"]``, ``["flash_attention"]``), one per kernel launch;
+the CPU path never touches them.
 
 Join/probe primitives (the SPF server's hot path)
 -------------------------------------------------
@@ -54,6 +57,16 @@ Scheduler primitives (the fragment cache's device half)
                             twin ``fragcache.replay``), so all-hit waves
                             never pull tables to the host.
 
+Model-stack primitives
+----------------------
+- ``attention``           — attention forward with GQA and an optional
+                            causal mask (the flash-attention kernel).  The
+                            CPU path is the JAX reference's non-TPU split
+                            (``ref.attention_chunked`` for ``Sk >= 2048``,
+                            else ``ref.attention_ref``), so it equals the
+                            reference's CPU path; the kernel agrees with it
+                            within float tolerance, not bit for bit.
+
 Host-side helpers
 -----------------
 - ``max_run_length_per_segment`` — per-predicate max equal-key run
@@ -74,6 +87,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401  (re-exported)
 from repro_torch.kernels.delta_probe import delta_probe_cuda
 from repro_torch.kernels.fingerprint import fingerprint_rows_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.replay import replay_delta_cuda
 from repro_torch.kernels.run_probe import run_probe_cuda
 from repro_torch.kernels.sorted_probe import sorted_probe_cuda
@@ -192,6 +207,20 @@ def replay_delta(seed_rows: torch.Tensor, src: torch.Tensor,
     if _on_card(seed_rows):
         return replay_delta_cuda(seed_rows, src, written, n_out, write_cols)
     return ref.replay_delta_ref(seed_rows, src, written, n_out, write_cols)
+
+
+# --------------------------------------------------------------------------
+# model-stack primitives
+# --------------------------------------------------------------------------
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, scale: float | None = None
+              ) -> torch.Tensor:
+    """Attention with GQA support: q ``[B, Hq, Sq, D]``, k and v
+    ``[B, Hkv, Sk, D]`` -> ``[B, Hq, Sq, D]`` in q's dtype."""
+    if _on_card(q):
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale)
 
 
 def probe_op_cost(n: int) -> int:

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the kernel primitives — the probes, the
-wave fingerprint and the fragment replay (the CPU path and the kernels'
-ground truth).
+wave fingerprint, the fragment replay and attention (the CPU path and the
+kernels' ground truth).
 
 ``repro_torch.kernels.ops`` runs these for tensors on the CPU; on the card
 it launches the CUDA kernels, which ``chip_smoke.py`` and the card tests
-hold bit-equal to these.  Outputs are exact integers and booleans.
+hold bit-equal to these.  Outputs are exact integers and booleans, except
+attention's, which is float and held to these within a tolerance.
 
 Where the JAX reference gathers with an index that may fall outside the
 array (jnp clamps silently), the index is clamped explicitly here, and an
@@ -299,3 +300,81 @@ def replay_delta_ref(seed_rows: torch.Tensor, src: torch.Tensor,
     if not lanes:
         return rows[0], valid[0]
     return rows, valid
+
+
+# --------------------------------------------------------------------------
+# attention (the model stack's one kernel)
+# --------------------------------------------------------------------------
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, scale: float | None = None
+                  ) -> torch.Tensor:
+    """Dense attention with GQA head-group broadcast, in float32.
+
+    q ``[B, Hq, Sq, D]``; k, v ``[B, Hkv, Sk, D]`` -> ``[B, Hq, Sq, D]`` in
+    q's dtype.  Query head ``h`` reads KV head ``h // (Hq // Hkv)``; the
+    causal mask is top-left aligned (``qi >= kj``, also when Sq != Sk),
+    masked scores are ``-1e30`` and the denominator is clamped at
+    ``1e-30``, as in the JAX reference.
+    """
+    _, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * scale
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        kj = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(qi >= kj, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vv.float())
+    return out.to(q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, scale: float | None = None,
+                      block_k: int = 1024) -> torch.Tensor:
+    """``attention_ref`` computed flash-style: an online softmax over KV
+    blocks of ``block_k`` keys, never holding the ``[Sq, Sk]`` scores.
+
+    The reference's ``lax.scan`` over blocks is a loop here; the keys are
+    padded to a whole block and the padding masked, as there.
+    """
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    qg = q.reshape(b, hkv, group, sq, dh).float()
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, hkv, group, sq), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, group, sq, dh), dtype=torch.float32,
+                      device=q.device)
+    for j0 in range(0, sk, block_k):
+        kj = k[:, :, j0:j0 + block_k].float()
+        vj = v[:, :, j0:j0 + block_k].float()
+        pad = block_k - kj.shape[2]
+        if pad:
+            kj = torch.nn.functional.pad(kj, (0, 0, 0, pad))
+            vj = torch.nn.functional.pad(vj, (0, 0, 0, pad))
+        s = torch.einsum("bkgqd,bksd->bkgqs", qg, kj) * scale
+        kpos = j0 + torch.arange(block_k, device=q.device)
+        mask = (kpos < sk)[None, :]
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bksd->bkgqd", p,
+                                                    vj)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, sq, dh).to(q.dtype)

@@ -1,6 +1,6 @@
-"""The CUDA kernels, the engine (over a static store and a live one) and
-the scheduler on the card, held against the port's own plain CPU path
-(exact).  Every test here needs an NVIDIA GPU: it
+"""The CUDA kernels, the engine (over a static store and a live one), the
+scheduler and the LM forward on the card, held against the port's own
+plain CPU path (exact, except attention's floats: see its tests).  Every test here needs an NVIDIA GPU: it
 carries the ``cuda`` marker and skips where there is none.
 
 This file imports only torch, numpy and ``repro_torch``, so it runs on a
@@ -21,10 +21,14 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.delta_probe import delta_probe_cuda, delta_probe_plain
 from repro_torch.kernels.fingerprint import (fingerprint_rows_cuda,
                                              fingerprint_rows_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.replay import replay_delta_cuda, replay_delta_plain
 from repro_torch.kernels.run_probe import run_probe_cuda, run_probe_plain
 from repro_torch.kernels.sorted_probe import (sorted_probe_cuda,
                                               sorted_probe_plain)
+from repro_torch.configs import registry as lm_registry
+from repro_torch.models.transformer import Transformer
 from repro_torch.rdf import (QueryLoadConfig, TripleStore, WatDivConfig,
                              generate_query_load, generate_watdiv)
 from repro_torch.rdf.queries import QUERY_LOADS
@@ -246,6 +250,90 @@ def test_kernel_wrappers_validate_inputs(cuda_device):
         replay_delta_cuda(block[0], src[0], wr[0], n_out[0], (0,))
     with pytest.raises(ValueError, match="M <= cap"):
         replay_delta_cuda(block[:, :2].contiguous(), src, wr, n_out, (0,))
+
+
+# (B, Hq, Hkv, Sq, Sk, D), causal: the reference's sweep
+# (tests/test_kernels.py), then D 14 / 16 / 128 / 256 at GQA groups 1 and 7
+ATTN_SHAPES = [
+    ((1, 2, 2, 128, 128, 64), True), ((2, 4, 2, 256, 256, 64), True),
+    ((1, 8, 1, 100, 100, 32), False), ((1, 2, 1, 64, 192, 128), False),
+    ((1, 4, 4, 1, 300, 64), False), ((1, 2, 2, 33, 65, 16), True),
+    ((2, 7, 1, 70, 130, 14), True), ((1, 14, 2, 65, 200, 16), True),
+    ((1, 7, 7, 129, 129, 128), True), ((1, 14, 2, 96, 33, 128), True),
+    ((1, 4, 4, 100, 257, 256), False), ((1, 7, 1, 1, 513, 256), False),
+]
+# max-abs on N(0, 1) inputs: the reference sweep's tolerances
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", ATTN_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda_device, shape, causal,
+                                              dtype):
+    """The kernel against its plain version, q a strided view: the
+    transpose of ``[B, S, H, D]`` the layers hand over, its rows cut from
+    wider ones (so it is not contiguous at Sq = 1 either)."""
+    b, hq, hkv, sq, sk, d = shape
+    rng = np.random.default_rng(sum(shape))
+    q = _t(rng.normal(size=(b, sq, hq, d + 3)).astype(np.float32),
+           cuda_device).to(dtype)[..., :d].transpose(1, 2)
+    k, v = (_t(rng.normal(size=(b, hkv, sk, d)).astype(np.float32),
+               cuda_device).to(dtype) for _ in range(2))
+    assert not q.is_contiguous()
+    before = ops.LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert float((got.cpu().float() - want.float()).abs().max()) \
+        < ATTN_TOL[dtype]
+
+
+def test_flash_attention_wrapper_validates_inputs(cuda_device):
+    q = torch.zeros((1, 4, 8, 16), device=cuda_device)
+    kv = torch.zeros((1, 2, 8, 16), device=cuda_device)
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="float32 or all"):
+        flash_attention_cuda(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="float32 or all"):
+        flash_attention_cuda(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention_cuda(q, kv[:, :1].expand(1, 3, 8, 16),
+                             kv[:, :1].expand(1, 3, 8, 16))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q, kv[..., :8], kv[..., :8])
+    with pytest.raises(ValueError, match="head dim must be in"):
+        wide = torch.zeros((1, 2, 8, 264), device=cuda_device)
+        flash_attention_cuda(wide, wide, wide)
+    with pytest.raises(ValueError, match="at least one key"):
+        flash_attention_cuda(q, kv[:, :, :0], kv[:, :, :0])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention_cuda(q, kv.cpu(), kv)
+    assert ops.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma-7b"])
+def test_lm_forward_on_card_matches_cpu(cuda_device, arch):
+    """A smoke-size forward in float32 on the card (the kernel) against the
+    same weights on the CPU (plain attention), within 1e-4 (the sums run
+    in another order)."""
+    from dataclasses import replace
+
+    cfg = replace(lm_registry.get(arch).smoke, dtype="float32")
+    model = Transformer(cfg, device="cpu",
+                        generator=torch.Generator("cpu").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    with torch.inference_mode():
+        want = model(tokens)
+        model.to(cuda_device)
+        before = ops.LAUNCHES["flash_attention"]
+        got = model(tokens.to(cuda_device))
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert torch.equal(got.cpu().argmax(-1), want.argmax(-1))
 
 
 @pytest.fixture(scope="module")

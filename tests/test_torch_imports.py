@@ -52,7 +52,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "repro_torch.kernels.replay", "repro_torch.rdf.store",
                 "repro_torch.rdf.writes", "repro_torch.core.fragcache",
                 "repro_torch.core.scheduler", "repro_torch.core.stepper",
-                "repro_torch.obs.registry"}
+                "repro_torch.obs.registry",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.models.layers", "repro_torch.models.transformer",
+                "repro_torch.configs.registry", "repro_torch.configs.steps",
+                "repro_torch.configs.glm4_9b", "repro_torch.configs.gemma_7b",
+                "repro_torch.configs.qwen2_7b", "repro_torch.data.synth",
+                "repro_torch.serve.serving", "repro_torch.launch.serve"}
     assert expected <= set(seen["modules"])
 
 
