@@ -118,6 +118,12 @@ ATTN_SWEEP = [((1, 2, 2, 128, 128, 64), True), ((2, 4, 2, 256, 256, 64), True),
               ((1, 2, 1, 64, 192, 128), False), ((1, 4, 4, 1, 300, 64), False),
               ((1, 2, 2, 33, 65, 16), True)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # max-abs, N(0, 1) inputs
+# At the main path's own shapes (S = 4096) a causal row averages thousands
+# of keys, so |o| is ~0.02-0.04 and 3e-2 would pass a wrong kernel: there
+# both dtypes run, float32 within ATTN_TOL and bfloat16 elementwise within
+# two bf16 steps of the plain version's value (2^-6 |want|) plus 1e-5 for
+# the float32 sums' own differences before the one rounding.
+ATTN_BF16_STEPS, ATTN_BF16_ABS = 2 ** -6, 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -830,10 +836,10 @@ def attention_operands(torch, gen, shape, dtype):
 
 def attention_kernel_phase(torch, cuda):
     """The flash-attention kernel against its plain version on the card:
-    the reference's sweep in both dtypes, the qwen2-7b prefill shape and a
-    gemma-7b-shaped D = 256 case; times at the qwen2-7b shape beside the
-    bound and ``scaled_dot_product_attention``.  Returns the report
-    entry."""
+    the reference's sweep, the qwen2-7b prefill shape and a gemma-7b-shaped
+    D = 256 case, each in float32 and bfloat16; times at the qwen2-7b shape
+    beside the bound and ``scaled_dot_product_attention``.  Returns the
+    report entry."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
 
@@ -842,24 +848,37 @@ def attention_kernel_phase(torch, cuda):
     qwen = (PREFILL_BATCH, cfg.n_heads, cfg.n_kv, PREFILL_SEQ, PREFILL_SEQ,
             cfg.head_dim)
     gemma = (1, 16, 16, PREFILL_SEQ, PREFILL_SEQ, 256)
-    cases = [(shape, causal, dt) for shape, causal in ATTN_SWEEP
-             for dt in ("float32", "bfloat16")]
-    cases += [(qwen, True, "bfloat16"), (gemma, True, "bfloat16")]
+    cases = [(shape, causal) for shape, causal in ATTN_SWEEP]
+    cases += [(qwen, True), (gemma, True)]
     worst = 0.0
-    for shape, causal, dt in cases:
-        q, k, v = attention_operands(torch, gen, shape, getattr(torch, dt))
-        got = flash_attention_cuda(q, k, v, causal=causal)
-        want = flash_attention_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        check(got.dtype == want.dtype and got.shape == want.shape,
-              f"attention output type {shape}")
-        err = float((got.float() - want.float()).abs().max())
-        check(err < ATTN_TOL[dt], f"flash_attention kernel == plain within "
-              f"{ATTN_TOL[dt]} at {shape} causal={causal} {dt}: {err}")
-        print(f"flash_attention {shape} causal={int(causal)} {dt}: "
-              f"max_abs_err {err:.3g}")
-        if dt == "bfloat16":
-            worst = max(worst, err)
+    for shape, causal in cases:
+        for dt in ("float32", "bfloat16"):
+            q, k, v = attention_operands(torch, gen, shape,
+                                         getattr(torch, dt))
+            got = flash_attention_cuda(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"attention output type {shape}")
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            what = f"{shape} causal={int(causal)} {dt}"
+            check(err < ATTN_TOL[dt], f"flash_attention kernel == plain "
+                  f"within {ATTN_TOL[dt]} at {what}: {err}")
+            note = ""
+            if dt == "bfloat16" and shape in (qwen, gemma):
+                step = ATTN_BF16_STEPS * want.float().abs() + ATTN_BF16_ABS
+                ratio = float((diff / step).max())
+                check(ratio <= 1.0, f"flash_attention kernel == plain within "
+                      f"{ATTN_BF16_STEPS:g} |want| + {ATTN_BF16_ABS:g} at "
+                      f"{what}: {ratio:.3g} of it")
+                note = (f", {ratio:.3g} of {ATTN_BF16_STEPS:g} |want| + "
+                        f"{ATTN_BF16_ABS:g} (|want| mean "
+                        f"{float(want.float().abs().mean()):.3g})")
+            print(f"flash_attention {what}: max_abs_err {err:.3g}{note}")
+            if dt == "bfloat16":
+                worst = max(worst, err)
+            del q, k, v, got, want, diff
 
     q, k, v = attention_operands(torch, gen, qwen, torch.bfloat16)
     fa_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v), iters=10)

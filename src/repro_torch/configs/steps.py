@@ -19,7 +19,7 @@ from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 from repro_torch.configs import registry as R
-from repro_torch.models import transformer as tfm_mod
+from repro_torch.serve import serving
 
 
 @dataclass
@@ -51,17 +51,20 @@ def build_cell(arch: str, shape: str, smoke: bool = False,
             f"(optimizer, trainer, attention's backward)")
 
     if kind == "prefill":
+        prefill = serving.make_prefill(e.family, cfg)
+
         def step(model, batch):
-            return model(batch["tokens"])
+            return prefill(model, batch["tokens"])
 
         return CellSpec(arch, shape, "prefill", step, (specs,), cfg,
                         e.family)
 
     if kind == "decode":
         pos = cache_len(specs) - 1
+        decode = serving.make_decode_step(e.family, cfg)
 
         def step(model, token, cache):
-            return model.decode_step(token, cache, pos)
+            return decode(model, token, cache, pos)
 
         return CellSpec(arch, shape, "decode", step,
                         (specs["token"], specs["cache"]), cfg, e.family)
