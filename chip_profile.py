@@ -13,8 +13,12 @@ all of them untraced (host wall clock, synchronised), and traces a
 second warm pass with ``torch.profiler``.  On the static store it also
 profiles ``chip_smoke.py``'s serving stream (240 requests from 16
 clients) through the scheduler: a cold drain, a warm drain, and the
-stream with the cache and collapsing off.  Last, it profiles the LM
-path of ``chip_smoke.py``'s phase 8: qwen2-7b at its published width
+stream with the cache and collapsing off; and ``chip_smoke.py``'s phase
+7b run of ``DistributedEngine.run_batch`` (SPF, 4 shards, each load's
+queries one batch at the load's cap) with owner masking on and off,
+each followed by a traced replay of that pass's k-way merges alone,
+whose device busy time over the pass's is the merges' share.  Last, it
+profiles the LM path of ``chip_smoke.py``'s phase 8: qwen2-7b at its published width
 and depth, one B = 1, S = 4096 prefill and 8 greedy decode steps at
 B = 8 against a 32768-position cache.  It prints, per pass:
 
@@ -73,10 +77,11 @@ def main() -> int:
     loads = smoke.query_loads(g, store)
     cuda = torch.device("cuda", 0)
 
-    def trace(label, what, run_all, n_q, unit="query") -> bool:
+    def trace(label, what, run_all, n_q, unit="query") -> float:
         """Run ``run_all`` once (warm-up), once timed, once traced, and
         print where the traced pass's time went; ``n_q`` of ``unit``
-        (queries, prefills, tokens) each."""
+        (queries, prefills, tokens) each.  Returns the traced pass's
+        device busy time in us (0 where the trace holds none)."""
         run_all()
         t0 = time.perf_counter()
         run_all()
@@ -93,7 +98,7 @@ def main() -> int:
         if busy_us <= 0:
             print(f"chip_profile: the {label} trace holds no device time",
                   file=sys.stderr)
-            return False
+            return 0.0
         items = sum(e.count for e in device)
         print(f"== {label}: {what}")
         print(f"wall untraced {untraced * 1e3:.3f} ms "
@@ -119,9 +124,9 @@ def main() -> int:
         for e in sorted(host, key=lambda e: -_us(e, "cpu"))[:12]:
             print(f"  {_us(e, 'cpu') / 1e3:9.3f} ms  {e.count:6d} x  "
                   f"{e.key[:90]}")
-        return True
+        return busy_us
 
-    def profile_pass(label, store) -> bool:
+    def profile_pass(label, store) -> float:
         engines = [core.QueryEngine(store, core.EngineConfig(interface=i),
                                     device=cuda) for i in core.INTERFACES]
         work = [(eng, q) for eng in engines for qs in loads.values()
@@ -140,7 +145,7 @@ def main() -> int:
             f"{sum(map(len, loads.values()))} queries, planner on)",
             run_all, len(work))
 
-    def serving_passes(store) -> bool:
+    def serving_passes(store) -> float:
         """chip_smoke's serving stream (16 clients, SPF, lanes 8) through
         the scheduler: a cold drain (a fresh scheduler each time), a warm
         drain (one scheduler, drained twice before), and the stream with
@@ -170,7 +175,58 @@ def main() -> int:
                               lanes=smoke.LANES, use_cache=False,
                               collapse_duplicates=False)), len(stream)))
 
-    if not profile_pass("static", store) or not serving_passes(store):
+    def sharded_passes(store) -> bool:
+        """The 4-shard SPF ``run_batch`` of ``chip_smoke.py``'s phase 7b,
+        owner masking on and off, then its k-way merges replayed alone
+        (the pass's ``gather_merge_kway`` calls, captured untraced)."""
+        from repro_torch.core import stepper
+        from repro_torch.core.distributed import (DistConfig,
+                                                  DistributedEngine)
+
+        plan = smoke.sharded_plan(torch, core, store, loads, ["spf"], cuda)
+        n_q = sum(len(p[0]) for p in plan.values())
+        merge = stepper.gather_merge_kway
+        for owner in (True, False):
+            batches = [
+                (DistributedEngine(store, core.EngineConfig(), DistConfig(
+                    cap=cap, shard_cap=cap, owner_masking=owner),
+                    n_shards=4, device=cuda), [loads[load][i] for i in keep])
+                for (_, load), (keep, cap, *_) in plan.items()]
+
+            def run_all():
+                for eng, qs in batches:
+                    eng.run_batch(qs)
+                torch.cuda.synchronize()
+
+            label = f"sharded, owner masking {'on' if owner else 'off'}"
+            busy = trace(label, f"SPF run_batch at 4 shards over {n_q} "
+                         f"queries, each load one batch at its cap "
+                         f"{[p[1] for p in plan.values()]}", run_all, n_q)
+            calls = []
+            stepper.gather_merge_kway = \
+                lambda *a: calls.append(a) or merge(*a)
+            try:
+                run_all()
+            finally:
+                stepper.gather_merge_kway = merge
+
+            def merges():
+                for a in calls:
+                    merge(*a)
+                torch.cuda.synchronize()
+
+            busy_m = trace(f"{label}: its k-way merges alone",
+                           f"{len(calls)} gather_merge_kway calls", merges,
+                           n_q)
+            del calls
+            if not busy or not busy_m:
+                return False
+            print(f"{label}: the k-way merges take {busy_m / busy:.1%} of "
+                  f"the pass's device busy time")
+        return True
+
+    if not profile_pass("static", store) or not serving_passes(store) \
+            or not sharded_passes(store):
         return 1
     read_preds = {t.p.id for qs in loads.values() for q in qs
                   for t in q.patterns if not t.p.is_var}
@@ -188,7 +244,7 @@ def main() -> int:
     return 0 if lm_passes(torch, cuda, trace) else 1
 
 
-def lm_passes(torch, cuda, trace) -> bool:
+def lm_passes(torch, cuda, trace) -> float:
     """qwen2-7b as ``chip_smoke.py``'s phase 8 serves it: a traced warm
     prefill, then traced passes of 8 greedy decode steps."""
     import chip_smoke as smoke

@@ -1,14 +1,15 @@
 """Run the PyTorch port on one NVIDIA GPU and check it: the SPF engine
 over a static store, over the live store under writes, serving a
-16-client stream through the scheduler, then the LM stack serving
-qwen2-7b at its published width and depth.
+16-client stream through the scheduler, the batched engine over the
+subject-hash-sharded store, then the LM stack serving qwen2-7b at its
+published width and depth.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions.
-2. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. Build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together).
 3. Build the paper's 10M-triple WatDiv store (``scale=20_500``) and put
    its index on the card.
@@ -60,6 +61,33 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    post-write store (twice), cache entries and planner marks over
    untouched predicates carry over, and no answer holds a tombstoned
    triple.
+7b. The sharded store, on the store as phase 7 leaves it (its write
+   window a delta over the compacted base): the store sharded by subject
+   hash at 4 and at 2 shards (each partition and upload timed; every
+   shard must hold inserts and tombstones), then (a) the owner-masked
+   probe against its plain version, bit-equal, at 2^20 bound-subject
+   rows drawn from the store against shard 0's PSO key column at 4
+   shards for every ``my_shard`` (each owning about a quarter), and at
+   the edges (int64-extreme queries and subjects, one shard, 4097 and
+   10007 shards, an empty column and batch, 1001 rows), timed beside
+   its plain version, two ``torch.searchsorted`` calls and its bound;
+   (b) ``DistributedEngine.run_batch`` on the card: SPF, brTPF, endpoint
+   and TPF at 4 shards with owner masking, SPF at 4 shards without it
+   and SPF at 2 shards with it, each load's queries one batch at the
+   load's cap (the smallest power of two holding every unit's peak in
+   the load's serial runs; queries whose serial peak exceeds 2^25 rows
+   are left out), with the launch counts set to 0 just before each
+   configuration and read just after: every lane's valid rows equal the
+   serial ``QueryEngine.run`` on the card byte for byte, ``n_results``
+   equals its count, nothing overflows, and the owner-masked probe
+   launches exactly when owner masking is on; one query per load (SPF,
+   4 shards, owner masking) and a deliberately overflowing cap of 1024
+   give rows, valid and all six ``DistStats`` fields equal to the
+   port's CPU run, which launches no kernel.  Then phase 7's write is
+   undone (no delta left; the shards' base tensors stay where they
+   were) and the SPF configurations run again against the serial
+   engine.  The store's tensors, shards included, are freed before
+   phase 8.
 8. LM serving, after the store's tensors are freed: (a) the
    flash-attention kernel against its plain version on the card over
    the reference's sweep in float32 and bfloat16, the qwen2-7b prefill
@@ -124,6 +152,15 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # max-abs, N(0, 1) inputs
 # two bf16 steps of the plain version's value (2^-6 |want|) plus 1e-5 for
 # the float32 sums' own differences before the one rounding.
 ATTN_BF16_STEPS, ATTN_BF16_ABS = 2 ** -6, 1e-5
+# phase 7b: shard counts, and the runs of DistributedEngine.run_batch as
+# (interface, shards, owner masking)
+SHARD_COUNTS = (4, 2)
+SHARD_RUNS = (("spf", 4, True), ("brtpf", 4, True), ("endpoint", 4, True),
+              ("tpf", 4, True), ("spf", 4, False), ("spf", 2, True))
+# the largest lane capacity phase 7b runs: a query whose serial peak
+# exceeds it (a star plan's cartesian product) is left out
+SHARD_CAP_CEILING = 1 << 25
+SHARD_OVERFLOW_CAP = 1024  # phase 7b's deliberately overflowing capacity
 
 
 def check(ok: bool, what: str) -> None:
@@ -1059,6 +1096,296 @@ def lm_parity_phase(torch, cuda):
     torch.cuda.empty_cache()
 
 
+def owned_kernel_phase(torch, np, store, stacked):
+    """The owner-masked probe against its plain version on the card, at
+    the sharded path's largest shape (2^20 bound-subject rows against
+    shard 0's PSO key column at 4 shards, every ``my_shard``) and at the
+    edges; returns its report entry (launches filled in later)."""
+    from repro_torch.kernels.owned_probe import (eqrange_owned_cuda,
+                                                 eqrange_owned_plain)
+
+    rng = np.random.default_rng(SEED + 3)
+    n_shards = stacked.key_ps_pso.shape[0]
+    keys = stacked.key_ps_pso[0]
+    cuda = keys.device
+    n, q = keys.shape[0], PROBE_QUERIES
+    # rows drawn from the store: (p, s) keys with their subjects, so each
+    # shard owns about 1/n_shards of them
+    pick = rng.integers(0, store.n_base, q)
+    queries = torch.from_numpy(store.h_key_ps[pick]).to(cuda)
+    subjects = torch.from_numpy(store.h_s_pso[pick].astype(np.int64)).to(cuda)
+    err, owned = 0, []
+    for my in range(n_shards):
+        got = eqrange_owned_cuda(keys, queries, subjects, my, n_shards)
+        want = eqrange_owned_plain(keys, queries, subjects, my, n_shards)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(torch, got, want))
+        owned.append(int(got[2].sum()))
+    check(err == 0, "eqrange_owned kernel == plain at 2^20 rows, every shard")
+    check(sum(owned) == q and all(0.2 * q < c < 0.3 * q for c in owned),
+          f"each of {n_shards} shards owns about a quarter of the rows")
+    # the edges: int64-extreme queries and subjects, one shard (all
+    # owned), shard counts past the reference's 4096, an empty column and
+    # batch, a row count that fills no block
+    i64 = np.iinfo(np.int64)
+    small = np.array([i64.min, -7, 3, 3, 9, i64.max], np.int64)
+    qs = np.concatenate([small, rng.integers(-10, 12, 994), [i64.max]])
+    subj = np.concatenate([[0, -1, i64.min, i64.max, i64.min + 1, 2**32],
+                           rng.integers(i64.min, i64.max, 995,
+                                        dtype=np.int64)])
+    n_edges = 0
+    for k in (small, small[:0]):
+        for my, ns in ((0, 1), (2, 4), (5, 4097), (9, 10007)):
+            for m in (len(qs), 0):
+                args = [torch.from_numpy(a[:m]) for a in (k, qs, subj)]
+                args[0] = torch.from_numpy(k)
+                got = eqrange_owned_cuda(*(a.to(cuda) for a in args), my, ns)
+                want = eqrange_owned_plain(*args, my, ns)
+                check(max_abs_err(torch, [g.cpu() for g in got], want) == 0,
+                      f"eqrange_owned kernel == plain at the edges "
+                      f"(n={len(k)}, q={m}, shards={ns})")
+                check(ns != 1 or bool(got[2].all()), "one shard owns all")
+                n_edges += 1
+    ms = cuda_ms(torch, lambda: eqrange_owned_cuda(keys, queries, subjects,
+                                                   0, n_shards))
+    plain = cuda_ms(torch, lambda: eqrange_owned_plain(keys, queries,
+                                                       subjects, 0, n_shards))
+    lib = cuda_ms(torch, lambda: (
+        torch.searchsorted(keys, queries, side="left", out_int32=True),
+        torch.searchsorted(keys, queries, side="right", out_int32=True)))
+    logn = math.ceil(math.log2(n))
+    # bytes: the column, the queries and subjects, and lo, hi and owned
+    # once; operations: the hash of every row (about a dozen integer
+    # operations), every row's lower bisection and the owned rows' upper
+    b_ms, b_by = bound(n * 8 + q * (8 + 8) + q * (4 + 4 + 1),
+                       q * (12 + logn) + owned[0] * logn)
+    print(f"eqrange_owned: n={n} (shard 0 of {n_shards}) q={q}, owned by "
+          f"shard {owned}, max_abs_err {err} over every shard and {n_edges} "
+          f"edge cases; kernel {ms:.4f} ms (my_shard 0), plain "
+          f"{plain:.4f} ms, torch.searchsorted x2 {lib:.4f} ms (a lower "
+          f"bound: no PyTorch call computes the hash), bound {b_ms:.4f} ms "
+          f"({b_by})")
+    return {"name": "eqrange_owned", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/eqrange_owned.cu",
+            "replaces": "src/repro/kernels/owned_probe.py:179",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def unit_peaks(torch, core, store, q, interface, device) -> int:
+    """The largest branch-boundary row count of ``q``'s serial evaluation
+    under ``interface`` (every unit's ``eval_unit`` peak), found at caps
+    growing 4x from 2^20; ``SHARD_CAP_CEILING + 1`` where even the
+    ceiling overflows."""
+    from repro_torch.core import bindings, server
+
+    plan = core.engine.plan_query(store, q, core.EngineConfig(
+        interface=interface))
+    dev = store.device_arrays(device)
+    const_vec = torch.tensor(plan.consts, dtype=torch.int64, device=device)
+    logn = server.log_factor(store.n_triples)
+    cap = PROBE_QUERIES
+    while True:
+        table = bindings.unit_table(cap, max(plan.n_vars, 1), device=device)
+        peak = 1
+        for up in plan.units:
+            table, _, p = server.eval_unit(dev, store.radix, up, const_vec,
+                                           table, logn=logn)
+            peak = max(peak, int(p))
+        if not bool(table.overflow):
+            return peak
+        if cap >= SHARD_CAP_CEILING:
+            return SHARD_CAP_CEILING + 1
+        cap = min(cap * 4, SHARD_CAP_CEILING)
+
+
+def sharded_plan(torch, core, store, loads, interfaces, device):
+    """Per (interface, load): the queries whose serial peak fits under
+    ``SHARD_CAP_CEILING`` and the load's cap — the smallest power of two
+    holding every unit's peak of those queries — plus the serial
+    ``QueryEngine.run`` answers on the card (``max_cap`` raised to that
+    cap), their warm walls and their peaks."""
+    peaks: dict = {}
+    plan = {}
+    for iface in interfaces:
+        for load, qs in loads.items():
+            keep, need, kept_peaks = [], 1, []
+            for i, q in enumerate(qs):
+                p = core.engine.plan_query(store, q, core.EngineConfig(
+                    interface=iface))
+                key = (p.units, p.consts)  # SPF == endpoint, TPF == brTPF
+                if key not in peaks:
+                    peaks[key] = unit_peaks(torch, core, store, q, iface,
+                                            device)
+                if peaks[key] <= SHARD_CAP_CEILING:
+                    keep.append(i)
+                    kept_peaks.append(peaks[key])
+                    need = max(need, peaks[key])
+            cap = 1 << (need - 1).bit_length()
+            eng = core.QueryEngine(store, core.EngineConfig(
+                interface=iface, max_cap=max(cap, PROBE_QUERIES)),
+                device=device)
+            answers, wall = [], 0.0
+            for i in keep:
+                eng.run(qs[i])
+                t0 = time.perf_counter()
+                tbl, stats = eng.run(qs[i])
+                answers.append((core.results_as_numpy(tbl),
+                                int(stats.n_results), bool(stats.overflow)))
+                torch.cuda.synchronize()
+                wall += time.perf_counter() - t0
+            check(not any(a[2] for a in answers),
+                  f"serial {iface} {load}: nothing overflows at cap {cap}")
+            plan[(iface, load)] = (keep, cap, answers, wall, kept_peaks)
+    return plan
+
+
+def sharded_runs(torch, core, store, loads, plan, runs, cuda, what):
+    """Each ``(interface, n_shards, owner_masking)`` of ``runs``: every
+    load's kept queries as one ``run_batch`` per load on the card at the
+    load's cap, each lane held to the serial answer.  Returns the launch
+    counts by run."""
+    from repro_torch.core.distributed import DistConfig, DistributedEngine
+    from repro_torch.kernels import ops
+
+    out = {}
+    for iface, n_shards, owner in runs:
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        n_q, serial_wall = 0, 0.0
+        for load, qs in loads.items():
+            keep, cap, answers, wall, _ = plan[(iface, load)]
+            eng = DistributedEngine(
+                store, core.EngineConfig(interface=iface),
+                DistConfig(cap=cap, shard_cap=cap, owner_masking=owner),
+                n_shards=n_shards, device=cuda)
+            rows, valid, stats = eng.run_batch([qs[i] for i in keep])
+            for lane, (want, count, _) in enumerate(answers):
+                got = rows[lane][valid[lane]].cpu().numpy()
+                st = [int(f[lane]) for f in stats] \
+                    if not isinstance(rows, list) \
+                    else [int(x) for x in stats[lane]]
+                check(got.tobytes() == want.tobytes() and got.shape ==
+                      want.shape, f"{what} {iface} {n_shards} shards "
+                      f"owner={owner} {load} #{keep[lane]}: run_batch == "
+                      f"serial")
+                check(st[4] == count and st[5] == 0,
+                      f"{what} {iface} {load} #{keep[lane]}: n_results and "
+                      f"no overflow")
+            n_q += len(keep)
+            serial_wall += wall
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        check((counts["eqrange_owned"] > 0) == owner,
+              f"{what} {iface} {n_shards} shards: the owner-masked probe "
+              f"launches iff owner masking is on")
+        out[(iface, n_shards, owner)] = counts
+        print(f"sharded {what}: {iface:8s} {n_shards} shards owner="
+              f"{int(owner)}: {n_q} queries equal the serial engine, "
+              f"run_batch {t_run:.3f} s ({t_run / n_q * 1e3:.1f} ms/query; "
+              f"serial warm {serial_wall / n_q * 1e3:.1f} ms/query, "
+              f"{t_run / serial_wall:.1f}x), launches {counts}")
+    return out
+
+
+def sharded_phase(torch, np, core, store, loads, cuda):
+    """Module docstring phase 7b: the subject-hash-sharded store and
+    ``DistributedEngine.run_batch`` on the card; returns the owner-masked
+    probe's report entry with its launches on the sharded path."""
+    from repro_torch.core.distributed import DistConfig, DistributedEngine
+    from repro_torch.kernels import ops
+
+    check(store.delta_size > 0, "phase 7's write left a delta")
+    stacked = {}
+    for n_shards in SHARD_COUNTS:
+        t0 = time.perf_counter()
+        shards = store.shard_by_subject(n_shards)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stacked[n_shards] = store.stacked_shard_arrays(n_shards, cuda)
+        torch.cuda.synchronize()
+        check(all(s._ins_set and s._tomb_set for s in shards),
+              f"every one of {n_shards} shards holds inserts and tombstones")
+        print(f"sharded: {n_shards} shards of {shards[0].n_base} base "
+              f"triples (padded) built in {t_build:.1f} s, uploaded in "
+              f"{time.perf_counter() - t0:.2f} s; delta per shard "
+              f"{[s.delta_size for s in shards]}")
+    entry = owned_kernel_phase(torch, np, store, stacked[4])
+    interfaces = sorted({r[0] for r in SHARD_RUNS})
+    t0 = time.perf_counter()
+    plan = sharded_plan(torch, core, store, loads, interfaces, cuda)
+    caps = ", ".join(f"{i}/{load} {p[1]}" for (i, load), p in plan.items())
+    print(f"sharded: the loads' caps: {caps}; queries kept {sum(len(k) for k, *_ in plan.values())} of "
+          f"{len(interfaces) * sum(map(len, loads.values()))} (serial "
+          f"peaks above {SHARD_CAP_CEILING} rows left out), planned in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = sharded_runs(torch, core, store, loads, plan, SHARD_RUNS,
+                            cuda, "with a delta")
+    entry["launches"] = sum(c["eqrange_owned"] for c in launches.values())
+
+    # ---- DistStats against the CPU: one query per load, and an overflow
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    cases = []
+    for load in loads:
+        keep, _, _, _, kept_peaks = plan[("spf", load)]
+        # the load's query with the smallest peak, at the smallest cap
+        # holding it (the CPU run stays short)
+        j = min(range(len(keep)), key=lambda k: kept_peaks[k])
+        cap = 1 << (kept_peaks[j] - 1).bit_length()
+        cases.append((f"{load} #{keep[j]}", loads[load][keep[j]], cap, cap))
+    cases.append(("1-star #0, overflowing", loads["1-star"][0],
+                  SHARD_OVERFLOW_CAP, SHARD_OVERFLOW_CAP))
+    for label, q, cap, shard_cap in cases:
+        dcfg = DistConfig(cap=cap, shard_cap=shard_cap, owner_masking=True)
+        card = DistributedEngine(store, core.EngineConfig(), dcfg,
+                                 n_shards=4, device=cuda).run_batch([q])
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        host = DistributedEngine(store, core.EngineConfig(), dcfg,
+                                 n_shards=4, device="cpu").run_batch([q])
+        check(ops.LAUNCHES == before, "no kernel launched on the CPU path")
+        for g, w in zip(card[:2], host[:2]):
+            check(torch.equal(g.cpu(), w), f"card == CPU rows and valid for "
+                  f"{label}")
+        st_card = [int(f[0]) for f in card[2]]
+        check(st_card == [int(f[0]) for f in host[2]],
+              f"card == CPU DistStats for {label}")
+        check(bool(st_card[5]) == (cap == SHARD_OVERFLOW_CAP),
+              f"{label}: overflow as expected")
+        print(f"sharded: {label} at cap {cap}, 4 shards, owner masking: "
+              f"card == CPU in rows, valid and DistStats {st_card}")
+    print(f"sharded: {len(cases)} card runs held against the CPU in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- the same without a delta: undo phase 7's write (tombstoned
+    # triples back in, inserted ones out), so the shards keep their base
+    base_ptrs = {n: [t.data_ptr() for t in stacked[n][:6]]
+                 for n in SHARD_COUNTS}
+    ins = np.array(sorted(store._ins_set), np.int64).reshape(-1, 3)
+    tomb = np.array(sorted(store._tomb_set), np.int64).reshape(-1, 3)
+    t0 = time.perf_counter()
+    store.apply_delta(insert=(tomb[:, 1], tomb[:, 0], tomb[:, 2]),
+                      delete=(ins[:, 1], ins[:, 0], ins[:, 2]))
+    check(store.delta_size == 0, "the undo leaves no delta")
+    for n_shards in SHARD_COUNTS:
+        arrays = store.stacked_shard_arrays(n_shards, cuda)
+        check([t.data_ptr() for t in arrays[:6]] == base_ptrs[n_shards],
+              f"{n_shards} shards keep their base tensors")
+        check(all(t.shape[1] == 0 for t in arrays[6:]),
+              f"{n_shards} shards hold no delta")
+    print(f"sharded: delta undone in {time.perf_counter() - t0:.2f} s")
+    runs = [r for r in SHARD_RUNS if r[0] == "spf"]
+    plan = sharded_plan(torch, core, store, loads, ["spf"], cuda)
+    launches = sharded_runs(torch, core, store, loads, plan, runs, cuda,
+                            "without a delta")
+    entry["launches"] += sum(c["eqrange_owned"] for c in launches.values())
+    return entry
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -1241,6 +1568,11 @@ def main() -> int:
               f"path")
     report += sched_report
     phases["7 serving"] = time.perf_counter() - t_phase
+
+    # ---- 7b. the sharded store and DistributedEngine.run_batch
+    t_phase = time.perf_counter()
+    report.insert(3, sharded_phase(torch, np, core, store, loads, cuda))
+    phases["7b sharded"] = time.perf_counter() - t_phase
 
     # ---- 8. LM serving: qwen2-7b on the card, its attention kernel
     t_phase = time.perf_counter()

@@ -10,14 +10,18 @@
   SPF / endpoint) with the paper's NRS / NTB / load accounting
 - :mod:`repro_torch.core.capacity`  — degree-based capacity planning
 - :mod:`repro_torch.core.stepper`   — the serial unit step, the wave
-  steps (lane-looped unit step, device digest, device replay), reseat and
-  the host cost account
+  steps (lane-looped unit step, device digest, device replay), reseat,
+  the host cost account, and the sharded-store unit evaluation with its
+  k-way merge
 - :mod:`repro_torch.core.scheduler` — concurrent query scheduler: mixed
   loads as signature-bucketed, cache-aware lane waves, with live writes
   at wave boundaries
 - :mod:`repro_torch.core.fragcache` — shared star-fragment cache over
   canonicalized seeded unit requests (frequency-aware admission,
   negative-result side table, store-epoch invalidation and carry-over)
+- :mod:`repro_torch.core.distributed` — the batched engine over a
+  subject-hash-sharded store (shards as an axis on one card; the
+  collectives are sums, lists and the k-way merge)
 - :mod:`repro_torch.core.oracle`    — brute-force ground truth (tests)
 """
 

@@ -151,6 +151,11 @@ class EvalCtx(NamedTuple):
     radix: int
     const_vec: torch.Tensor  # int64[n_consts], on the store's device
     logn: int  # ceil(log2 n): the cost model's binary-search factor
+    # owner masking: (my_shard, n_shards) on one shard of a subject-hash
+    # sharded store, None on a whole store.  When set, bound-subject
+    # probes go through ``kops.eqrange_owned``: rows whose subject another
+    # shard owns get empty runs inside the probe, with no mask pass.
+    owner: tuple[int, int] | None = None
 
 
 # evaluator signature: (ctx, branch, table) -> (table, ops_delta)
@@ -180,15 +185,33 @@ def _has_delta(dev: StoreArrays) -> bool:
 
 
 def _probe_run(ctx: EvalCtx, b: BranchPlan, table: BindingTable
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None,
+                          torch.Tensor]:
     """Locate each row's ``(p, s)`` run in PSO order (bound-subject cases).
-    Returns ``(lo, hi, key)``; the delta overlay probes the same composite
-    ``key`` into the insert column.  Invalid rows probe whatever their
-    columns hold; ``valid`` masks them downstream."""
+
+    Returns ``(lo, hi, owned, key)``; ``owned`` is None on a whole store
+    and, under owner masking, the rows this shard owns (the others
+    already carry an empty run).  The delta overlay probes the same
+    composite ``key`` into the insert column; a shard's delta holds only
+    triples whose subjects it owns, so a non-owned row misses there too.
+    Invalid rows probe whatever their columns hold; ``valid`` masks them
+    downstream."""
     s_vals = _term_values(table.rows, b.subj_src, ctx.const_vec)
     key = ctx.const_vec[b.pred_ci] * ctx.radix + s_vals
-    lo, hi = kops.eqrange(ctx.dev.key_ps_pso, key)
-    return lo, hi, key
+    if ctx.owner is None:
+        lo, hi = kops.eqrange(ctx.dev.key_ps_pso, key)
+        return lo, hi, None, key
+    my_shard, n_shards = ctx.owner
+    lo, hi, owned = kops.eqrange_owned(ctx.dev.key_ps_pso, key, s_vals,
+                                       my_shard, n_shards)
+    return lo, hi, owned, key
+
+
+def _probe_active(table: BindingTable, owned: torch.Tensor | None
+                  ) -> torch.Tensor:
+    """Rows the local store actually probes (owner-masked when sharded)."""
+    valid = table.valid if owned is None else table.valid & owned
+    return torch.sum(valid.to(torch.int64))
 
 
 def _expand_into(ctx: EvalCtx, b: BranchPlan, table: BindingTable,
@@ -383,14 +406,16 @@ def _merged_into(ctx: EvalCtx, b: BranchPlan, table: BindingTable,
 def probe_filter(ctx: EvalCtx, b: BranchPlan, table: BindingTable
                  ) -> tuple[BindingTable, torch.Tensor]:
     """probe_oconst / probe_ovar_bound: subject and object both bound —
-    a pure bind-join membership filter over the (p, s) runs.
+    a pure bind-join membership filter over the (p, s) runs.  Under owner
+    masking non-owned rows carry empty runs, so their membership is False
+    with no extra mask pass.
 
     Delta overlay: a base hit only counts if its position is not
     tombstoned, and the insert run can supply the hit instead — the
     merged membership ``(base & ~tomb) | ins``.
     """
-    lo, hi, key = _probe_run(ctx, b, table)
-    active = _active(table)
+    lo, hi, owned, key = _probe_run(ctx, b, table)
+    active = _probe_active(table, owned)
     o_vals = _term_values(table.rows, b.obj_src, ctx.const_vec)
     delta = active * (2 * ctx.logn) + active * ctx.logn
     dev = ctx.dev
@@ -413,9 +438,10 @@ def probe_filter(ctx: EvalCtx, b: BranchPlan, table: BindingTable
 def probe_ovar_free(ctx: EvalCtx, b: BranchPlan, table: BindingTable
                     ) -> tuple[BindingTable, torch.Tensor]:
     """Subject bound, object free: expand objects within each (p, s) run
-    (the merged live-base + insert runs when a delta is overlaid)."""
-    lo, hi, key = _probe_run(ctx, b, table)
-    active = _active(table)
+    (the merged live-base + insert runs when a delta is overlaid).
+    Non-owned rows (empty runs) contribute zero expansion degree."""
+    lo, hi, owned, key = _probe_run(ctx, b, table)
+    active = _probe_active(table, owned)
     dev = ctx.dev
     if not _has_delta(dev):
         ex = expand(lo, hi, table.valid, table.cap)

@@ -13,6 +13,10 @@ Layer map (bottom-up):
                    runs: one thread per row, one bisection
 - delta_probe    — the live store's delta half of a merged probe: insert
                    equal range + tombstone ranks, one thread per query
+- owned_probe    — the sharded store's owner-masked probe: a uint64
+                   splitmix64 of the row's subject, then the equal range
+                   (only the lower bound for a row another shard owns),
+                   one thread per query
 - fingerprint    — the scheduler's wave digest: a 4 x uint32 hash of each
                    lane's valid rows, one thread per row, warp shuffles
                    and atomics into a per-lane accumulator

@@ -22,9 +22,9 @@ validity and int32 deltas, float32 or bfloat16 attention operands — and
 raise on any other.
 
 Launches are counted in ``LAUNCHES`` (``LAUNCHES["sorted_probe"]``,
-``["run_probe"]``, ``["delta_probe"]``, ``["fingerprint_rows"]``,
-``["replay_delta"]``, ``["flash_attention"]``), one per kernel launch;
-the CPU path never touches them.
+``["run_probe"]``, ``["delta_probe"]``, ``["eqrange_owned"]``,
+``["fingerprint_rows"]``, ``["replay_delta"]``, ``["flash_attention"]``),
+one per kernel launch; the CPU path never touches them.
 
 Join/probe primitives (the SPF server's hot path)
 -------------------------------------------------
@@ -44,6 +44,10 @@ Join/probe primitives (the SPF server's hot path)
                             insert-key equal range + tombstone ranks of
                             the base run bounds, one pass (the delta-probe
                             kernel).
+- ``eqrange_owned``       — ``eqrange`` on one shard of a subject-hash
+                            sharded store, masked by subject ownership:
+                            non-owned rows get the empty run (the
+                            owner-masked probe kernel).
 
 Scheduler primitives (the fragment cache's device half)
 -------------------------------------------------------
@@ -89,6 +93,7 @@ from repro_torch.kernels.delta_probe import delta_probe_cuda
 from repro_torch.kernels.fingerprint import fingerprint_rows_cuda
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.owned_probe import eqrange_owned_cuda
 from repro_torch.kernels.replay import replay_delta_cuda
 from repro_torch.kernels.run_probe import run_probe_cuda
 from repro_torch.kernels.sorted_probe import sorted_probe_cuda
@@ -127,6 +132,26 @@ def eqrange(sorted_keys: torch.Tensor, query_keys: torch.Tensor
         rank_lo, rank_hi, _ = sorted_probe_cuda(sorted_keys, query_keys)
         return rank_lo, rank_hi
     return ref.eqrange_ref(sorted_keys, query_keys)
+
+
+def eqrange_owned(sorted_keys: torch.Tensor, query_keys: torch.Tensor,
+                  subjects: torch.Tensor, my_shard: int, n_shards: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``eqrange`` with subject-ownership masking folded into the probe:
+    ``(lo, hi, owned)``, int32, int32 and bool.  On a subject-hash-sharded
+    store a bound-subject row matches only on the shard its subject
+    hashes to (``ref.subject_shard_ref(subjects, n_shards)``), so a row
+    that ``my_shard`` does not own gets the empty run ``[lo, lo)`` and
+    downstream filters and expansions skip it with no mask pass.
+    ``owned`` lets the cost account count only the rows this shard
+    probed."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if _on_card(sorted_keys):
+        return eqrange_owned_cuda(sorted_keys, query_keys, subjects,
+                                  my_shard, n_shards)
+    return ref.eqrange_owned_ref(sorted_keys, query_keys, subjects,
+                                 my_shard, n_shards)
 
 
 def searchsorted(sorted_keys: torch.Tensor, queries: torch.Tensor,

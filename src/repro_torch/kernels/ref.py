@@ -62,6 +62,44 @@ def rank_ref(sorted_keys: torch.Tensor, queries: torch.Tensor,
                               out_int32=True)
 
 
+# splitmix64's finaliser constants as the int64 values of their uint64 bits
+_SM64_M1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_SM64_M2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _shr64(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (``>>`` on int64 is arithmetic)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def subject_shard_ref(subjects: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Owning shard of each subject id: the splitmix64 finaliser of its
+    64 bits, bit 63 masked, mod ``n_shards`` (int32) — bit-equal to the
+    reference's uint64 ``subject_shard_ref`` and to the store's
+    partitioner ``rdf.store._subject_hash``.
+
+    torch on the CPU has no uint64 ``>>`` or ``%``, so the hash runs in
+    int64: logical shifts are masked arithmetic ones, the multiplies wrap
+    mod 2^64 as uint64's do, and after the bit-63 mask the value is
+    non-negative, so ``%`` is the unsigned remainder."""
+    x = subjects.to(torch.int64)
+    x = (x ^ _shr64(x, 30)) * _SM64_M1
+    x = (x ^ _shr64(x, 27)) * _SM64_M2
+    x = x ^ _shr64(x, 31)
+    return ((x & 0x7FFFFFFFFFFFFFFF) % n_shards).to(torch.int32)
+
+
+def eqrange_owned_ref(sorted_keys: torch.Tensor, query_keys: torch.Tensor,
+                      subjects: torch.Tensor, my_shard: int, n_shards: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``eqrange`` masked by subject ownership: ``(lo, hi, owned)`` with
+    ``hi = lo`` (the empty run) on every row whose subject does not hash
+    to ``my_shard`` — the reference's masking path, ``ops._rf``."""
+    owned = subject_shard_ref(subjects, n_shards) == my_shard
+    lo, hi = eqrange_ref(sorted_keys, query_keys)
+    return lo, torch.where(owned, hi, lo), owned
+
+
 def delta_probe_ref(ins_keys: torch.Tensor, tomb_pos: torch.Tensor,
                     query_keys: torch.Tensor, base_lo: torch.Tensor,
                     base_hi: torch.Tensor

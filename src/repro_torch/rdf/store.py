@@ -50,6 +50,15 @@ eagerly, has nothing to retrace, and uploads no padding.  A zero-length
 column is the "no such delta" case the evaluators test for.)  Each bump
 logs the predicates it touched (``changed_preds_since``).  The
 dictionary is fixed: inserts must use existing term and predicate ids.
+
+Sharding: ``shard_by_subject(n)`` partitions the base by a splitmix64
+hash of the subject (``_subject_hash``) into ``n`` stores padded to one
+length, cached per base epoch, and ``stacked_shard_arrays(n, device)``
+gives their tensors with a leading shard axis — the layout
+``core/distributed.py`` evaluates shard by shard.  A delta-only epoch
+moves only the delta: each shard takes the triples its subjects own, and
+its columns are padded to the largest shard's exact delta length (the
+one place the port pads a delta, so the shards stack).
 """
 
 from __future__ import annotations
@@ -199,6 +208,11 @@ class TripleStore:
     # tensors), the whole view as (epoch, StoreArrays)
     _dev_base: dict = field(default_factory=dict, repr=False)
     _device: dict = field(default_factory=dict, repr=False)
+    # subject-hash partitions: n_shards -> [shard stores, epoch whose delta
+    # they carry], kept per base epoch; and their stacked tensors,
+    # (n_shards, device) -> [base tensors, epoch, StoreArrays | None]
+    _shard_cache: dict = field(default_factory=dict, repr=False)
+    _shard_dev: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         if self.n_base < 0:
@@ -355,6 +369,8 @@ class TripleStore:
         self._device.clear()
         if not delta_only:
             self._dev_base.clear()
+            self._shard_cache.clear()
+            self._shard_dev.clear()
         self._epoch_log.append((self.epoch, changed))
         if len(self._epoch_log) > _EPOCH_LOG_MAX:
             del self._epoch_log[0]
@@ -602,3 +618,138 @@ class TripleStore:
                 np.maximum.at(out, (uniq // self.n_terms).astype(np.int64),
                               counts)
         return out_ps, out_po
+
+    # --------------------------------------------------------------- sharding
+    def shard_by_subject(self, n_shards: int) -> list["TripleStore"]:
+        """Hash-partition by subject; pad shards to equal base count.
+
+        Every base triple goes to shard ``_subject_hash(s) % n_shards``.
+        Padding triples use predicate id ``n_predicates`` (one past the
+        last real predicate), so they never match a query pattern and sort
+        to the end of every index, and distinct subjects, so the build's
+        dedup keeps them all.  The *base* partitions are cached per base
+        epoch; a delta-only epoch redistributes the (small) delta onto the
+        cached shards, each triple to its subject's owner, and the shards
+        keep their resident base tensors.
+        """
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        cached = self._shard_cache.get(n_shards)
+        if cached is None:
+            # reconstruct (s, p, o) from the base PSO arrays
+            p_all = (self.h_key_ps // self.n_terms).astype(np.int64)
+            s_all = self.h_s_pso.astype(np.int64)
+            o_all = self.h_o_pso.astype(np.int64)
+            shard_of = _subject_hash(s_all) % n_shards
+            counts = np.bincount(shard_of, minlength=n_shards)
+            cap = int(counts.max())
+            shards = []
+            for i in range(n_shards):
+                m = shard_of == i
+                pad = cap - int(counts[i])
+                shards.append(TripleStore.build(
+                    np.concatenate([s_all[m], np.arange(pad, dtype=np.int64)]),
+                    np.concatenate([p_all[m], np.full(pad, self.n_predicates,
+                                                      np.int64)]),
+                    np.concatenate([o_all[m], np.zeros(pad, np.int64)]),
+                    n_terms=self.n_terms, n_predicates=self.n_predicates))
+            cached = [shards, -1]
+            self._shard_cache[n_shards] = cached
+        shards, applied = cached
+        if applied != self.epoch:
+            for i, rows in enumerate(_by_owner(self._ins_set, n_shards)):
+                shards[i]._ins_set = rows
+            for i, rows in enumerate(_by_owner(self._tomb_set, n_shards)):
+                shards[i]._tomb_set = rows
+            for shard in shards:
+                shard._rebuild_delta()
+                shard.epoch = self.epoch
+                shard._device.clear()  # delta-only: shard._dev_base is kept
+            cached[1] = self.epoch
+        return shards
+
+    def stacked_shard_arrays(self, n_shards: int, device=None) -> StoreArrays:
+        """The subject-hash shards' index as tensors on ``device`` (default
+        ``"cuda"``) with a leading shard axis: each of the 16 fields is
+        ``[n_shards, length]``, and ``StoreArrays(*(a[i] for a in it))`` is
+        shard ``i``'s view.
+
+        The six base tensors are stacked and uploaded once per device and
+        base epoch.  Each shard's delta columns are padded to the largest
+        shard's exact delta length (no power-of-two bucket) with values
+        that no evaluator reads as data (``_delta_host_padded``) and
+        uploaded per epoch; with no delta anywhere they are zero-length.
+        """
+        dev = resolve_device(device)
+        shards = self.shard_by_subject(n_shards)
+        slot = self._shard_dev.get((n_shards, dev))
+        if slot is None:
+            base = tuple(
+                torch.from_numpy(np.stack([getattr(s, f) for s in shards]))
+                .to(dev) for f in _HOST_FIELDS[:6])
+            slot = [base, -1, None]
+            self._shard_dev[(n_shards, dev)] = slot
+        if slot[1] != self.epoch:
+            m_pad = max(s.h_ins_key_ps.shape[0] for s in shards)
+            t_pad = max(s.h_tomb_pos_ps.shape[0] for s in shards)
+            deltas = [s._delta_host_padded(m_pad, t_pad) for s in shards]
+            delta = (torch.from_numpy(np.stack([d[i] for d in deltas])).to(dev)
+                     for i in range(len(_DELTA_FIELDS)))
+            slot[1:] = [self.epoch, StoreArrays(*slot[0], *delta)]
+        return slot[2]
+
+    def _delta_host_padded(self, m_pad: int, t_pad: int) -> tuple:
+        """The ten delta columns padded to ``(m_pad, t_pad)`` entries.
+
+        The padding values keep every consumer exact: insert keys pad with
+        the int64 max (outside any real equal range), insert value columns
+        with 0 (never gathered: runs exclude padding), tombstone positions
+        with ``n_base`` (no base position reaches it, and the counts use
+        strict ``<``), and the adj columns with the int32 max (a live rank
+        ``k < n_base`` never counts it, and nondecreasingness holds).
+        """
+        def pad(a, n, val):
+            if a.shape[0] >= n:
+                return a
+            return np.concatenate([a, np.full(n - a.shape[0], val, a.dtype)])
+
+        i64_max = np.iinfo(np.int64).max
+        i32_max = np.iinfo(np.int32).max
+        return (
+            pad(self.h_ins_key_ps, m_pad, i64_max),
+            pad(self.h_ins_s_pso, m_pad, 0),
+            pad(self.h_ins_o_pso, m_pad, 0),
+            pad(self.h_ins_key_po, m_pad, i64_max),
+            pad(self.h_ins_s_pos, m_pad, 0),
+            pad(self.h_ins_o_pos, m_pad, 0),
+            pad(self.h_tomb_pos_ps, t_pad, self.n_base),
+            pad(self.h_tomb_adj_ps, t_pad, i32_max),
+            pad(self.h_tomb_pos_po, t_pad, self.n_base),
+            pad(self.h_tomb_adj_po, t_pad, i32_max),
+        )
+
+
+def _owner(s, n_shards: int):
+    """The shard that owns subject ``s``: an int for an int, an int64
+    array for an array of subjects."""
+    owner = _subject_hash(np.asarray(s, np.int64).reshape(-1)) % n_shards
+    return int(owner[0]) if np.ndim(s) == 0 else owner
+
+
+def _by_owner(triples: set, n_shards: int) -> list[set]:
+    """A set of ``(p, s, o)`` triples split by the owner of each subject."""
+    rows = list(triples)
+    owner = _owner(np.array([t[1] for t in rows], np.int64), n_shards)
+    out = [set() for _ in range(n_shards)]
+    for t, i in zip(rows, owner.tolist()):
+        out[i].add(t)
+    return out
+
+
+def _subject_hash(s: np.ndarray) -> np.ndarray:
+    """Deterministic 64-bit mix (splitmix64 finaliser) for subject sharding."""
+    x = s.astype(np.uint64)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    x = x ^ (x >> np.uint64(31))
+    return (x & np.uint64(0x7FFFFFFFFFFFFFFF)).astype(np.int64)

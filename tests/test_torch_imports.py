@@ -49,7 +49,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "repro_torch.kernels.run_probe",
                 "repro_torch.kernels.delta_probe",
                 "repro_torch.kernels.fingerprint",
-                "repro_torch.kernels.replay", "repro_torch.rdf.store",
+                "repro_torch.kernels.replay",
+                "repro_torch.kernels.owned_probe",
+                "repro_torch.core.distributed", "repro_torch.rdf.store",
                 "repro_torch.rdf.writes", "repro_torch.core.fragcache",
                 "repro_torch.core.scheduler", "repro_torch.core.stepper",
                 "repro_torch.obs.registry",

@@ -17,15 +17,19 @@ from repro.kernels import ref as jref
 from repro.core import fragcache as ref_fragcache
 from repro.kernels.delta_probe import delta_probe_pallas
 from repro.kernels.fingerprint import fingerprint_rows_pallas
+from repro.kernels.owned_probe import eqrange_owned_pallas
 from repro.kernels.replay import replay_delta_pallas
 from repro.kernels.run_probe import (run_probe_pallas,
                                      run_probe_prefetch_pallas)
 from repro.kernels.sorted_probe import sorted_probe_pallas
+from repro.rdf.store import _subject_hash
 from repro_torch.core import fragcache
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.delta_probe import delta_probe_cuda, delta_probe_plain
 from repro_torch.kernels.fingerprint import (fingerprint_rows_cuda,
                                              fingerprint_rows_plain)
+from repro_torch.kernels.owned_probe import (eqrange_owned_cuda,
+                                             eqrange_owned_plain)
 from repro_torch.kernels.replay import replay_delta_cuda, replay_delta_plain
 from repro_torch.kernels.run_probe import run_probe_cuda, run_probe_plain
 from repro_torch.kernels.sorted_probe import (sorted_probe_cuda,
@@ -319,6 +323,81 @@ def test_int32_tombstone_ranks_match_reference(n, q):
     assert not _np(rank).any() and not _np(contains).any()
 
 
+# ---------------------------------------------------------------- owned probe
+
+_EXTREME_SUBJECTS = np.array(
+    [0, 1, -1, 2, 2**31 - 1, 2**31, 2**32 - 1, 2**32, (1 << 62) - 1,
+     -(2**31), np.iinfo(np.int64).min, np.iinfo(np.int64).min + 1,
+     np.iinfo(np.int64).max - 1, np.iinfo(np.int64).max], np.int64)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 7, 8, 64, 4095, 4096, 10007])
+def test_subject_shard_matches_reference(n_shards):
+    """The int64 splitmix64 against the reference's uint64 one and the
+    store's partitioner, bit for bit, extremes and negatives included."""
+    rng = np.random.default_rng(n_shards)
+    subjects = np.concatenate([
+        rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, 2000,
+                     dtype=np.int64),
+        rng.integers(0, 1 << 40, 500), _EXTREME_SUBJECTS]).astype(np.int64)
+    got = ref.subject_shard_ref(_t(subjects), n_shards)
+    assert got.dtype == torch.int32
+    want = np.asarray(jref.subject_shard_ref(jnp.asarray(subjects), n_shards))
+    np.testing.assert_array_equal(_np(got), want)
+    np.testing.assert_array_equal(_np(got), _subject_hash(subjects) % n_shards)
+
+
+@pytest.mark.parametrize("n_shards,my_shard", [(1, 0), (2, 1), (4, 0),
+                                               (4, 3), (8, 5)])
+def test_eqrange_owned_matches_reference(n_shards, my_shard):
+    """The plain owned probe (and ``ops.eqrange_owned`` on the CPU)
+    against the reference's Pallas kernel in interpret mode at its own
+    test's cases: a non-owned row gets the empty run ``[lo, lo)``."""
+    rng = np.random.default_rng(10 * n_shards + my_shard)
+    n, q = 800, 257  # a query count that fills no tile
+    keys = np.sort(rng.integers(0, 3000, n)).astype(np.int64)
+    queries = rng.integers(-5, 3005, q).astype(np.int64)
+    queries[:2] = [I64_MAX, np.iinfo(np.int64).min]
+    subjects = rng.integers(0, 1 << 40, q).astype(np.int64)
+    subjects[:len(_EXTREME_SUBJECTS)] = _EXTREME_SUBJECTS
+    want = eqrange_owned_pallas(jnp.asarray(keys), jnp.asarray(queries),
+                                jnp.asarray(subjects), my_shard, n_shards,
+                                interpret=True)
+    for got in (eqrange_owned_plain(_t(keys), _t(queries), _t(subjects),
+                                    my_shard, n_shards),
+                ops.eqrange_owned(_t(keys), _t(queries), _t(subjects),
+                                  my_shard, n_shards)):
+        assert [g.dtype for g in got] == [torch.int32, torch.int32,
+                                          torch.bool]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_np(g), np.asarray(w))
+    owned = _np(got[2])
+    assert owned.all() if n_shards == 1 else 0 < owned.sum() < q
+
+
+def test_eqrange_owned_edges():
+    """Empty columns and batches, and shard counts past the reference's
+    MAX_SHARDS, against numpy's searchsorted and the store's hash."""
+    keys = np.array([-7, 3, 3, 9, I64_MAX], np.int64)
+    for n_shards in (1, 5000, 10007):
+        for k in (keys, keys[:0]):
+            q = np.array([3, I64_MAX, -8, 9, 0], np.int64)
+            subj = _EXTREME_SUBJECTS[-5:]
+            lo, hi, own = ops.eqrange_owned(_t(k), _t(q), _t(subj), 1,
+                                            n_shards)
+            owned = _subject_hash(subj) % n_shards == 1
+            w_lo = np.searchsorted(k, q, "left")
+            w_hi = np.where(owned, np.searchsorted(k, q, "right"), w_lo)
+            np.testing.assert_array_equal(_np(own), owned)
+            np.testing.assert_array_equal(_np(lo), w_lo)
+            np.testing.assert_array_equal(_np(hi), w_hi)
+    empty = _t(np.zeros(0, np.int64))
+    lo, hi, own = ops.eqrange_owned(_t(keys), empty, empty, 0, 3)
+    assert lo.shape == hi.shape == own.shape == (0,)
+    with pytest.raises(ValueError, match="n_shards"):
+        ops.eqrange_owned(_t(keys), empty, empty, 0, 0)
+
+
 # ---------------------------------------------------------------- fingerprint
 
 I32 = np.iinfo(np.int32)
@@ -517,6 +596,7 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
     before = dict(ops.LAUNCHES)
     keys = _t(np.arange(10, dtype=np.int64))
     ops.eqrange(keys, keys)
+    ops.eqrange_owned(keys, keys, keys, 1, 4)
     ops.searchsorted(keys, keys, side="right")
     ops.run_probe(keys.to(torch.int32), _t(np.zeros(10, np.int32)),
                   _t(np.full(10, 10, np.int32)), keys)
@@ -541,6 +621,8 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ops.delta_probe(keys, keys, keys, keys, keys)
     with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ops.eqrange_owned(keys, keys, keys, 0, 2)
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
         ops.fingerprint_rows(keys.reshape(1, 2, 2).to(torch.int32),
                              keys[None, :2].to(torch.bool))
     with pytest.raises(ValueError, match="CUDA or the CPU"):
@@ -559,6 +641,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
     b = k.to(torch.int32)
     with pytest.raises(ValueError, match="CUDA device"):
         delta_probe_cuda(k, b, k, b, b)
+    with pytest.raises(ValueError, match="CUDA device"):
+        eqrange_owned_cuda(k, k, k, 0, 2)
     with pytest.raises(ValueError, match="CUDA device"):
         fingerprint_rows_cuda(b.reshape(1, 2, 2), b[None, :2].to(torch.bool))
     with pytest.raises(ValueError, match="CUDA device"):

@@ -9,8 +9,9 @@ from _hyp import given, settings, st
 from _torch import HOST_FIELDS, port_store, torch
 
 from repro.rdf.store import TripleStore as RefStore
+from repro.rdf.store import _subject_hash as ref_subject_hash
 from repro_torch.rdf import store as store_mod
-from repro_torch.rdf.store import StoreArrays, TripleStore
+from repro_torch.rdf.store import StoreArrays, TripleStore, _subject_hash
 
 
 @st.composite
@@ -160,3 +161,118 @@ def test_runs_and_cardinalities_match_reference(watdiv_small):
         for kw in ({}, {"s": s}, {"o": o}, {"s": s, "o": o}):
             assert store.tp_cardinality(p, **kw) == \
                 ref_store.tp_cardinality(p, **kw)
+
+
+# --------------------------------------------------------------- sharding
+
+@given(triple_sets(), st.integers(2, 8))
+@settings(max_examples=15, deadline=None)
+def test_subject_sharding_partitions(data, n_shards):
+    """Twin of ``tests/test_store.py``'s: every real triple lands on the
+    shard its subject hashes to, and the shards are padded to one length."""
+    s, p, o, n_terms, n_preds = data
+    store = TripleStore.build(s, p, o, n_terms=n_terms, n_predicates=n_preds)
+    shards = store.shard_by_subject(n_shards)
+    total_real = 0
+    for i, sh in enumerate(shards):
+        pred = sh.h_key_ps // sh.n_terms
+        real = pred < n_preds  # padding uses predicate id n_preds
+        subs = sh.h_s_pso[real].astype(np.int64)
+        assert np.all(_subject_hash(subs) % n_shards == i)
+        total_real += int(real.sum())
+    assert total_real == store.n_triples
+    assert len({sh.n_triples for sh in shards}) == 1
+
+
+def test_subject_hash_matches_reference():
+    rng = np.random.default_rng(3)
+    ids = np.concatenate([
+        rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, 5000,
+                     dtype=np.int64),
+        np.array([0, 1, -1, 2**31 - 1, 2**32, np.iinfo(np.int64).min,
+                  np.iinfo(np.int64).max], np.int64)])
+    np.testing.assert_array_equal(_subject_hash(ids), ref_subject_hash(ids))
+    assert [store_mod._owner(int(x), 7) for x in ids[:50]] == \
+        (ref_subject_hash(ids[:50]) % 7).tolist()
+
+
+def _stores(g):
+    """A fresh reference store and the port's, built from one graph."""
+    kw = dict(n_terms=g.n_terms, n_predicates=g.n_predicates)
+    return (RefStore.build(g.s, g.p, g.o, **kw),
+            TripleStore.build(g.s, g.p, g.o, **kw))
+
+
+def _assert_same_shards(ref, mine, n_shards):
+    for a, b in zip(ref.shard_by_subject(n_shards),
+                    mine.shard_by_subject(n_shards), strict=True):
+        _assert_same_index(a, b)
+    want = ref.stacked_shard_arrays(n_shards)
+    got = mine.stacked_shard_arrays(n_shards, "cpu")
+    for name in StoreArrays._fields[:6]:
+        w, t = np.asarray(getattr(want, name)), getattr(got, name).numpy()
+        assert t.dtype == w.dtype and t.shape == w.shape, name
+        np.testing.assert_array_equal(t, w, err_msg=name)
+    return want, got
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4])
+def test_shards_and_stacked_base_match_reference(watdiv_small, n_shards):
+    g, _ = watdiv_small
+    ref, mine = _stores(g)
+    _, got = _assert_same_shards(ref, mine, n_shards)
+    assert got.key_ps_pso.shape[0] == n_shards
+    for name in StoreArrays._fields[6:]:  # no delta: zero-length columns
+        assert getattr(got, name).shape == (n_shards, 0), name
+    assert mine.stacked_shard_arrays(n_shards, "cpu") is got
+    with pytest.raises(ValueError, match="n_shards"):
+        mine.shard_by_subject(0)
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_shard_deltas_follow_writes(watdiv_small, n_shards):
+    """After ``apply_delta`` each shard's delta columns equal the
+    reference's on their valid prefix (the reference pads to a pow2
+    bucket, the port to the largest shard's exact length, with the same
+    values) and the cached base shards and base tensors stay; after
+    ``compact`` the shard cache is rebuilt over the new base."""
+    g, _ = watdiv_small
+    ref, mine = _stores(g)
+    _assert_same_shards(ref, mine, n_shards)
+    shards = mine.shard_by_subject(n_shards)
+    base = mine.stacked_shard_arrays(n_shards, "cpu")[:6]
+    rng = np.random.default_rng(n_shards)
+    k = rng.choice(ref.n_triples, 60, replace=False)
+    dels = (ref.h_s_pso[k], ref.h_key_ps[k] // ref.n_terms, ref.h_o_pso[k])
+    ins = tuple(rng.integers(0, hi, 50) for hi in
+                (g.n_terms, g.n_predicates, g.n_terms))
+    for st_ in (ref, mine):
+        st_.apply_delta(insert=ins, delete=dels)
+    assert mine.shard_by_subject(n_shards) is shards  # cached base kept
+    want, got = _assert_same_shards(ref, mine, n_shards)
+    for a, b in zip(base, got[:6]):
+        assert a is b  # the base tensors are not re-uploaded
+    for i, (rs, ms) in enumerate(zip(ref.shard_by_subject(n_shards),
+                                     shards)):
+        assert ms._ins_set == rs._ins_set and ms._tomb_set == rs._tomb_set
+        assert ms.n_triples == rs.n_triples and ms.epoch == mine.epoch
+        m, t = ms.h_ins_key_ps.shape[0], ms.h_tomb_pos_ps.shape[0]
+        for j, name in enumerate(StoreArrays._fields[6:]):
+            exact = m if j < 6 else t
+            w = np.asarray(getattr(want, name))[i]
+            col = getattr(got, name)[i].numpy()
+            np.testing.assert_array_equal(col[:exact], w[:exact],
+                                          err_msg=name)
+            # the padding is the reference's padding, to the longest shard
+            np.testing.assert_array_equal(col[exact:],
+                                          w[exact:col.shape[0]],
+                                          err_msg=name)
+    longest = max(s.h_ins_key_ps.shape[0] for s in shards)
+    assert got.ins_key_ps.shape == (n_shards, longest)
+    assert longest > 0 and all(s.delta_size for s in shards)
+    for st_ in (ref, mine):
+        st_.compact()
+    assert mine.shard_by_subject(n_shards) is not shards
+    _, got = _assert_same_shards(ref, mine, n_shards)
+    for name in StoreArrays._fields[6:]:
+        assert getattr(got, name).shape == (n_shards, 0), name
