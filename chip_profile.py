@@ -1,6 +1,8 @@
 """Where the port's warm query time goes on one NVIDIA GPU.
 
     python3 chip_profile.py        # from the repository root; needs one card
+    python3 chip_profile.py --lm   # the LM passes alone
+    python3 chip_profile.py --single-p   # attention with P as one bf16
 
 Builds what ``chip_smoke.py`` runs — the paper's 10M-triple WatDiv store
 and 3 queries of each of the five loads — and profiles three stores in
@@ -32,8 +34,11 @@ B = 8 against a 32768-position cache.  It prints, per pass:
   time.
 
 The tracer's own cost inflates the traced wall; the untraced wall is the
-one to quote.  Exits non-zero where there is no card or the trace holds
-no device time.
+one to quote.  ``--single-p`` instead times the wgmma attention kernel
+against a variant of its source that feeds P to the P V product as one
+bf16 value (the ``lo`` product removed), built into ``build/single_p/``,
+and holds both to ``chip_smoke.py``'s elementwise bf16 bound.  Exits
+non-zero where there is no card or the trace holds no device time.
 """
 
 from __future__ import annotations
@@ -73,8 +78,6 @@ def main() -> int:
     print(f"card: {smoke.card_line()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.build()
-    g, store = smoke.watdiv_store(smoke.SCALE)
-    loads = smoke.query_loads(g, store)
     cuda = torch.device("cuda", 0)
 
     def trace(label, what, run_all, n_q, unit="query") -> float:
@@ -225,6 +228,12 @@ def main() -> int:
                   f"the pass's device busy time")
         return True
 
+    if "--lm" in sys.argv[1:]:
+        return 0 if lm_passes(torch, cuda, trace) else 1
+    if "--single-p" in sys.argv[1:]:
+        return 0 if single_p(torch, cuda) else 1
+    g, store = smoke.watdiv_store(smoke.SCALE)
+    loads = smoke.query_loads(g, store)
     if not profile_pass("static", store) or not serving_passes(store) \
             or not sharded_passes(store):
         return 1
@@ -284,6 +293,76 @@ def lm_passes(torch, cuda, trace) -> float:
                           f"B={smoke.DECODE_BATCH} against a "
                           f"{smoke.DECODE_CACHE}-position cache", decode,
                           smoke.DECODE_TOKENS, unit="token"))
+
+
+def single_p(torch, cuda) -> bool:
+    """The wgmma attention kernel (P fed to P V as a hi + lo pair of bf16
+    fragments) against the same source with the ``lo`` product removed,
+    at the qwen2-7b and a D = 256 prefill shape: CUDA-event means in
+    turns (split, single, single, split), and each one's worst elementwise
+    ratio to ``chip_smoke.py``'s bf16 bound and the elements over it."""
+    import ctypes
+    import subprocess
+
+    import chip_smoke as smoke
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    src = (_build.CSRC / "flash_attention_wgmma.cu").read_text()
+    lo = "            wgmma_rs(acc[c], p_lo[kk], dv);\n"
+    if src.count(lo) != 1:
+        print("chip_profile: the lo product is not in the wgmma source",
+              file=sys.stderr)
+        return False
+    out = ROOT / "build" / "single_p"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "single_p.cu").write_text(src.replace(lo, ""))
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                    str(out / "single_p.so"), str(out / "single_p.cu")],
+                   check=True)
+    launch = ctypes.CDLL(str(out / "single_p.so")) \
+        .flash_attention_wgmma_launch
+    ptr, ll = ctypes.c_void_p, ctypes.c_longlong
+    launch.argtypes = [ptr] * 4 + [ll] * 6 + [ptr, ctypes.c_float,
+                                              ctypes.c_int, ptr]
+    launch.restype = ctypes.c_int
+
+    def single(q, k, v):
+        b, hq, sq, d = q.shape
+        o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+        st = (ll * 12)(*q.stride(), *k.stride(), *v.stride())
+        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      b, hq, k.shape[1], sq, k.shape[2], d,
+                      ctypes.cast(st, ptr), 1.0 / d ** 0.5, 1,
+                      torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"single-P variant launch failed: {code}")
+        return o
+
+    cfg = smoke.lm_config()
+    gen = torch.Generator(cuda).manual_seed(smoke.SEED + 3)
+    for shape in ((smoke.PREFILL_BATCH, cfg.n_heads, cfg.n_kv,
+                   smoke.PREFILL_SEQ, smoke.PREFILL_SEQ, cfg.head_dim),
+                  (1, 16, 16, smoke.PREFILL_SEQ, smoke.PREFILL_SEQ, 256)):
+        q, k, v = smoke.attention_operands(torch, gen, shape, torch.bfloat16)
+        want = fa.flash_attention_plain(q, k, v).float()
+        step = smoke.ATTN_BF16_STEPS * want.abs() + smoke.ATTN_BF16_ABS
+        fns = {"split": lambda: fa.flash_attention_wgmma_cuda(q, k, v),
+               "single": lambda: single(q, k, v)}
+        times = {name: [] for name in fns}
+        for name in [*fns, *reversed(fns)]:
+            times[name].append(smoke.cuda_ms(torch, fns[name]))
+        print(f"== P fed to P V at {shape}, bf16, causal "
+              f"(card: {smoke.card_line()})")
+        for name, fn in fns.items():
+            diff = (fn().float() - want).abs()
+            turns = ", ".join(f"{t:.4f}" for t in times[name])
+            print(f"{name}: {sum(times[name]) / 2:.4f} ms ({turns}); worst "
+                  f"{float((diff / step).max()):.4g} of the bf16 bound, "
+                  f"{int((diff > step).sum())} elements over it")
+        del q, k, v, want
+    return True
+
 
 if __name__ == "__main__":
     sys.exit(main())

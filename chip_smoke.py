@@ -9,7 +9,7 @@ published width and depth.
 Phases (any failure exits non-zero; there is no CPU fallback):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions.
-2. Build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. Build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together).
 3. Build the paper's 10M-triple WatDiv store (``scale=20_500``) and put
    its index on the card.
@@ -88,19 +88,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    were) and the SPF configurations run again against the serial
    engine.  The store's tensors, shards included, are freed before
    phase 8.
-8. LM serving, after the store's tensors are freed: (a) the
-   flash-attention kernel against its plain version on the card over
-   the reference's sweep in float32 and bfloat16, the qwen2-7b prefill
-   shape and a D = 256 case, with the kernel's, the plain version's and
-   ``scaled_dot_product_attention``'s times at the qwen2-7b shape; (b)
-   qwen2-7b at its published width and depth (random weights from a
-   seeded generator): a B = 1, S = 4096 prefill through the
-   ``prefill_32k`` cell, which must launch the kernel exactly once per
-   layer and give finite logits, then 8 greedy decode steps (twice) at
-   B = 8 against a 32768-position cache filled on the card, which launch
-   no kernel; (c) the same model at 2 layers in float32 on the CPU
-   (plain attention) and on the card (the kernel): logits within 1e-3
-   and the same argmax at every position.
+8. LM serving, after the store's tensors are freed: (a) both
+   flash-attention kernels against their plain version on the card,
+   through the dispatcher, over the reference's sweep in float32 and
+   bfloat16, the qwen2-7b prefill shape and a D = 256 case (the bf16
+   cases at D 64 / 128 / 256 go to the wgmma kernel, the rest to the
+   simple one, and each launch is checked to go where the rule sends
+   it), then at the qwen2-7b shape in bf16 the simple kernel called
+   directly, and the wgmma kernel's, the simple kernel's,
+   ``scaled_dot_product_attention``'s and the plain version's times, in
+   turns; (b) qwen2-7b at its published width and depth (random weights
+   from a seeded generator): a B = 1, S = 4096 prefill through the
+   ``prefill_32k`` cell, which must launch the wgmma kernel exactly once
+   per layer and nothing else and give finite logits, then 8 greedy
+   decode steps (twice) at B = 8 against a 32768-position cache filled
+   on the card, which launch no kernel; (c) the same model at 2 layers
+   in float32 on the CPU (plain attention) and on the card (the simple
+   kernel, once per layer): logits within 1e-3 and the same argmax at
+   every position.
 
 The line before the last is the kernel report as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Times are CUDA-event means over
@@ -872,13 +877,22 @@ def attention_operands(torch, gen, shape, dtype):
 
 
 def attention_kernel_phase(torch, cuda):
-    """The flash-attention kernel against its plain version on the card:
-    the reference's sweep, the qwen2-7b prefill shape and a gemma-7b-shaped
-    D = 256 case, each in float32 and bfloat16; times at the qwen2-7b shape
-    beside the bound and ``scaled_dot_product_attention``.  Returns the
-    report entry."""
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+    """Both attention kernels against their plain version on the card,
+    through the dispatcher: the reference's sweep, the qwen2-7b prefill
+    shape and a gemma-7b-shaped D = 256 case, each in float32 and
+    bfloat16 — every bf16 case the wgmma rule admits goes to the wgmma
+    kernel, every other case to the simple one, and each launch is
+    checked to have gone where the rule sends it.  Then, on the bf16
+    qwen2-7b operands and in turns, the wgmma kernel, the simple kernel
+    called directly (held against the plain version too),
+    ``scaled_dot_product_attention`` and the plain version are timed
+    beside the bound.  Returns the report entries of the simple kernel
+    and of the wgmma kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain,
+        flash_attention_simple_cuda, flash_attention_wgmma_cuda,
+        wgmma_eligible)
 
     gen = torch.Generator(cuda).manual_seed(SEED + 3)
     cfg = lm_config()
@@ -887,43 +901,73 @@ def attention_kernel_phase(torch, cuda):
     gemma = (1, 16, 16, PREFILL_SEQ, PREFILL_SEQ, 256)
     cases = [(shape, causal) for shape, causal in ATTN_SWEEP]
     cases += [(qwen, True), (gemma, True)]
-    worst = 0.0
+    worst = {"flash_attention": 0.0, "flash_attention_wgmma": 0.0}
+
+    def hold(got, want, what, elementwise):
+        """Hold ``got`` against ``want`` with the stated tolerances; return
+        the max-abs error."""
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"attention output type at {what}")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        dt = str(got.dtype).removeprefix("torch.")
+        check(err < ATTN_TOL[dt], f"attention kernel == plain within "
+              f"{ATTN_TOL[dt]} at {what}: {err}")
+        note = ""
+        if elementwise:
+            step = ATTN_BF16_STEPS * want.float().abs() + ATTN_BF16_ABS
+            ratio = float((diff / step).max())
+            check(ratio <= 1.0, f"attention kernel == plain within "
+                  f"{ATTN_BF16_STEPS:g} |want| + {ATTN_BF16_ABS:g} at "
+                  f"{what}: {ratio:.3g} of it")
+            note = (f", {ratio:.3g} of {ATTN_BF16_STEPS:g} |want| + "
+                    f"{ATTN_BF16_ABS:g} (|want| mean "
+                    f"{float(want.float().abs().mean()):.3g})")
+        print(f"{what}: max_abs_err {err:.3g}{note}")
+        return err
+
     for shape, causal in cases:
         for dt in ("float32", "bfloat16"):
             q, k, v = attention_operands(torch, gen, shape,
                                          getattr(torch, dt))
+            name = ("flash_attention_wgmma" if wgmma_eligible(q, k, v)
+                    else "flash_attention")
+            check(dt == "float32" or shape[-1] not in (64, 128, 256)
+                  or name == "flash_attention_wgmma",
+                  f"the layers' bf16 view of {shape} meets the wgmma rule")
+            before = dict(ops.LAUNCHES)
             got = flash_attention_cuda(q, k, v, causal=causal)
-            want = flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            check(got.dtype == want.dtype and got.shape == want.shape,
-                  f"attention output type {shape}")
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            what = f"{shape} causal={int(causal)} {dt}"
-            check(err < ATTN_TOL[dt], f"flash_attention kernel == plain "
-                  f"within {ATTN_TOL[dt]} at {what}: {err}")
-            note = ""
-            if dt == "bfloat16" and shape in (qwen, gemma):
-                step = ATTN_BF16_STEPS * want.float().abs() + ATTN_BF16_ABS
-                ratio = float((diff / step).max())
-                check(ratio <= 1.0, f"flash_attention kernel == plain within "
-                      f"{ATTN_BF16_STEPS:g} |want| + {ATTN_BF16_ABS:g} at "
-                      f"{what}: {ratio:.3g} of it")
-                note = (f", {ratio:.3g} of {ATTN_BF16_STEPS:g} |want| + "
-                        f"{ATTN_BF16_ABS:g} (|want| mean "
-                        f"{float(want.float().abs().mean()):.3g})")
-            print(f"flash_attention {what}: max_abs_err {err:.3g}{note}")
+            check(all(ops.LAUNCHES[n] == before[n] + (n == name)
+                      for n in ops.LAUNCHES),
+                  f"one launch of {name} and nothing else for {shape} {dt}")
+            want = flash_attention_plain(q, k, v, causal=causal)
+            err = hold(got, want, f"{name} {shape} causal={int(causal)} {dt}",
+                       dt == "bfloat16" and shape in (qwen, gemma))
             if dt == "bfloat16":
-                worst = max(worst, err)
-            del q, k, v, got, want, diff
+                worst[name] = max(worst[name], err)
+            del q, k, v, got, want
 
     q, k, v = attention_operands(torch, gen, qwen, torch.bfloat16)
-    fa_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v), iters=10)
-    fa_plain = cuda_ms(torch, lambda: flash_attention_plain(q, k, v),
-                       iters=5)
-    fa_lib = cuda_ms(torch, lambda: torch.nn.functional.
-                     scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True), iters=10)
+    want = flash_attention_plain(q, k, v)
+    err = hold(flash_attention_simple_cuda(q, k, v), want,
+               f"flash_attention (called directly) {qwen} causal=1 bfloat16",
+               True)
+    worst["flash_attention"] = max(worst["flash_attention"], err)
+    del want
+    fns = {
+        "flash_attention_wgmma": lambda: flash_attention_wgmma_cuda(q, k, v),
+        "flash_attention": lambda: flash_attention_simple_cuda(q, k, v),
+        "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+        "plain": lambda: flash_attention_plain(q, k, v),
+    }
+    iters = {"flash_attention_wgmma": 20, "flash_attention": 5, "sdpa": 20,
+             "plain": 3}
+    times = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:  # in turns: a b c d d c b a
+        times[name].append(cuda_ms(torch, fns[name], iters=iters[name]))
+    ms = {name: sum(t) / len(t) for name, t in times.items()}
     b, hq, hkv, sq, sk, d = qwen
     flops = 4 * b * hq * sq * sk * d / 2  # causal: half the scores
     nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
@@ -931,17 +975,28 @@ def attention_kernel_phase(torch, cuda):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     fa_bound, fa_by = ((t_ops, "operations") if t_ops >= t_bytes
                        else (t_bytes, "bytes"))
-    print(f"flash_attention {LM_ARCH} prefill {qwen} bf16 causal: kernel "
-          f"{fa_ms:.4f} ms ({flops / fa_ms / 1e9:.1f} TFLOP/s), plain "
-          f"{fa_plain:.4f} ms, scaled_dot_product_attention {fa_lib:.4f} ms, "
-          f"bound {fa_bound:.4f} ms ({fa_by}: {flops:.3g} flops at the bf16 "
-          f"tensor peak; {nbytes / 1e6:.1f} MB in {t_bytes:.4f} ms)")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    print(f"attention at the {LM_ARCH} prefill shape {qwen}, bf16, causal "
+          f"(CUDA-event means, two turns each, a b c d d c b a); bound "
+          f"{fa_bound:.4f} ms by {fa_by} ({flops:.3g} flops in "
+          f"{t_ops:.4f} ms at the bf16 tensor peak, {nbytes / 1e6:.1f} MB "
+          f"in {t_bytes:.4f} ms):")
+    for name, t in ms.items():
+        turns = ", ".join(f"{x:.4f}" for x in times[name])
+        print(f"  {name}: {t:.4f} ms ({turns}), {flops / t / 1e9:.1f} "
+              f"TFLOP/s, {t / fa_bound:.2f}x the bound, "
+              f"{t / ms['sdpa']:.2f}x scaled_dot_product_attention")
+    entries = []
+    for name, source in (("flash_attention", "flash_attention.cu"),
+                         ("flash_attention_wgmma",
+                          "flash_attention_wgmma.cu")):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": "src/repro/kernels/flash_attention.py:121",
-            "launches": 0, "max_abs_err": worst, "ms": fa_ms,
-            "plain_ms": fa_plain, "bound_ms": fa_bound, "bound_by": fa_by,
-            "library_ms": fa_lib}
+            "launches": 0, "max_abs_err": worst[name], "ms": ms[name],
+            "plain_ms": ms["plain"], "bound_ms": fa_bound,
+            "bound_by": fa_by, "library_ms": ms["sdpa"]})
+    return entries
 
 
 def random_cache(torch, model, batch: int, seq: int, gen) -> dict:
@@ -1002,9 +1057,9 @@ def lm_serving_phase(torch, cuda):
         check(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab),
               "prefill logits shape")
         check(bool(torch.isfinite(logits).all()), "prefill logits finite")
-        check(launches["flash_attention"] == cfg.n_layers
+        check(launches["flash_attention_wgmma"] == cfg.n_layers
               and sum(launches.values()) == cfg.n_layers,
-              f"one attention launch per layer and no other kernel: "
+              f"one wgmma attention launch per layer and no other kernel: "
               f"{launches}")
         walls = []
         for _ in range(3):
@@ -1054,9 +1109,10 @@ def lm_serving_phase(torch, cuda):
 
 def lm_parity_phase(torch, cuda):
     """qwen2-7b at full width with ``PARITY_LAYERS`` layers in float32, the
-    same weights on the CPU (plain attention) and on the card (the
-    kernel): logits within ``PARITY_TOL`` and the same argmax at every
-    position."""
+    same weights on the CPU (plain attention) and on the card (the simple
+    kernel: float32 is outside the wgmma rule): logits within
+    ``PARITY_TOL`` and the same argmax at every position.  Returns the
+    card forward's launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Transformer
 
@@ -1077,8 +1133,11 @@ def lm_parity_phase(torch, cuda):
         model.to(cuda)
         on_card = model(tokens.to(cuda))
         torch.cuda.synchronize()
-        check(ops.LAUNCHES["flash_attention"] == PARITY_LAYERS,
-              "the card's forward went through the kernel")
+        launches = dict(ops.LAUNCHES)
+        check(launches["flash_attention"] == PARITY_LAYERS
+              and sum(launches.values()) == PARITY_LAYERS,
+              f"the card's float32 forward went through the simple kernel "
+              f"once per layer: {launches}")
         on_card = on_card.cpu()
         err = float((on_card - on_cpu).abs().max())
         top2 = on_cpu.topk(2, dim=-1).values
@@ -1094,6 +1153,7 @@ def lm_parity_phase(torch, cuda):
         check(same == PARITY_SEQ, "the same argmax at every position")
         del model, on_card, on_cpu
     torch.cuda.empty_cache()
+    return launches
 
 
 def owned_kernel_phase(torch, np, store, stacked):
@@ -1579,11 +1639,10 @@ def main() -> int:
     del dev, store, g, loads, on_card, on_cpu
     gc.collect()
     torch.cuda.empty_cache()
-    entry = attention_kernel_phase(torch, cuda)
-    lm_launches = lm_serving_phase(torch, cuda)
-    entry["launches"] = lm_launches["flash_attention"]
-    report.append(entry)
-    lm_parity_phase(torch, cuda)
+    simple, wgmma = attention_kernel_phase(torch, cuda)
+    wgmma["launches"] = lm_serving_phase(torch, cuda)["flash_attention_wgmma"]
+    simple["launches"] = lm_parity_phase(torch, cuda)["flash_attention"]
+    report += [simple, wgmma]
     phases["8 LM serving"] = time.perf_counter() - t_phase
     print("phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items())

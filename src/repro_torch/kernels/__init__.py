@@ -23,10 +23,14 @@ Layer map (bottom-up):
 - replay         — the scheduler's cache-hit replay: cached deltas
                    gathered onto the lanes' seed tables, one thread per
                    output element
-- flash_attention — attention forward for the transformer: one CTA per
-                   batch x query head and block of 64 query rows, K/V
-                   tiles in shared memory, the online softmax in
-                   registers, f32 FMAs on CUDA cores
+- flash_attention — attention forward for the transformer, two kernels
+                   picked by a rule on the operands (``wgmma_eligible``):
+                   csrc/flash_attention_wgmma.cu for bf16 operands TMA can
+                   load (D 64 / 128 / 256) — wgmma on tiles TMA brings
+                   into a ring in shared memory, one CTA per batch x query
+                   head and block of 128 query rows; csrc/flash_attention.cu
+                   for the rest — K/V tiles in shared memory, f32 FMAs on
+                   CUDA cores; both keep the online softmax in registers
 - ref            — plain PyTorch versions (the CPU path and the kernels'
                    ground truth)
 - ops            — THE dispatch layer: a CUDA tensor runs the kernel, a

@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 KERNELS = ("sorted_probe", "run_probe", "delta_probe", "eqrange_owned",
-           "fingerprint_rows", "replay_delta", "flash_attention")
+           "fingerprint_rows", "replay_delta", "flash_attention",
+           "flash_attention_wgmma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -23,8 +23,9 @@ raise on any other.
 
 Launches are counted in ``LAUNCHES`` (``LAUNCHES["sorted_probe"]``,
 ``["run_probe"]``, ``["delta_probe"]``, ``["eqrange_owned"]``,
-``["fingerprint_rows"]``, ``["replay_delta"]``, ``["flash_attention"]``),
-one per kernel launch; the CPU path never touches them.
+``["fingerprint_rows"]``, ``["replay_delta"]``, ``["flash_attention"]``,
+``["flash_attention_wgmma"]``), one per kernel launch; the CPU path never
+touches them.
 
 Join/probe primitives (the SPF server's hot path)
 -------------------------------------------------
@@ -64,8 +65,10 @@ Scheduler primitives (the fragment cache's device half)
 Model-stack primitives
 ----------------------
 - ``attention``           — attention forward with GQA and an optional
-                            causal mask (the flash-attention kernel).  The
-                            CPU path is the JAX reference's non-TPU split
+                            causal mask (the flash-attention kernels:
+                            ``flash_attention_cuda`` takes the wgmma kernel
+                            for bf16 operands ``wgmma_eligible`` admits,
+                            the simple kernel for the rest).  The CPU path is the JAX reference's non-TPU split
                             (``ref.attention_chunked`` for ``Sk >= 2048``,
                             else ``ref.attention_ref``), so it equals the
                             reference's CPU path; the kernel agrees with it

@@ -3,6 +3,11 @@ plain versions in ``repro_torch.kernels.ref``) against the JAX
 reference on the CPU: the Pallas kernel in interpret mode and the
 reference's dense and chunked versions, on the same numpy inputs.
 
+Also pins the rule that picks the wgmma kernel on the card
+(``flash_attention.wgmma_eligible``) on CPU tensors, and that the CPU
+path stays the plain version and launches nothing for operands the rule
+admits.
+
 Tolerances: float32 2e-5 and bfloat16 3e-2 max-abs on N(0, 1) inputs,
 those of the reference's own ``test_flash_attention_sweep``
 (``tests/test_kernels.py``): the sums run in another order, and a
@@ -24,8 +29,9 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda, flash_attention_plain, flash_attention_simple_cuda,
+    flash_attention_wgmma_cuda, wgmma_eligible)
 
 # the reference's sweep (tests/test_kernels.py::test_flash_attention_sweep)
 SWEEP = [
@@ -133,3 +139,113 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attention_cuda(q, q[:, :1], q[:, :1])
     assert ops.LAUNCHES["flash_attention"] == before
+
+
+def _bshd(b, s, h, d, dtype=torch.bfloat16, pad=0):
+    """The layers' operand: a transposed view ``[B, H, S, D]`` of a
+    ``[B, S, H, D + pad]`` projection, its rows cut to ``d``."""
+    x = torch.zeros((b, s, h, d + pad), dtype=dtype)
+    return x[..., :d].transpose(1, 2)
+
+
+def _shifted(shape, dtype=torch.bfloat16):
+    """A contiguous tensor whose base lies one element past an aligned
+    allocation."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+# (what, q, k, v): the wgmma kernel's rule on CPU tensors
+ELIGIBLE = [
+    ("contiguous D 64", torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16),
+     None, None),
+    ("contiguous D 128", torch.zeros((2, 4, 9, 128), dtype=torch.bfloat16),
+     None, None),
+    ("contiguous D 256", torch.zeros((1, 2, 3, 256), dtype=torch.bfloat16),
+     None, None),
+    ("layers' view, qwen2-7b heads", _bshd(1, 40, 28, 128),
+     _bshd(1, 40, 4, 128), _bshd(1, 40, 4, 128)),
+    ("layers' view, gemma-7b heads", _bshd(2, 33, 16, 256), None, None),
+    ("Sq = 1 view", _bshd(1, 1, 7, 128), _bshd(1, 300, 1, 128),
+     _bshd(1, 300, 1, 128)),
+    ("16-element cut view", _bshd(1, 5, 2, 64, pad=16), None, None),
+]
+INELIGIBLE = [
+    ("float32", torch.zeros((1, 2, 8, 128)), None, None),
+    ("float16", torch.zeros((1, 2, 8, 128), dtype=torch.float16), None,
+     None),
+    ("D 14", torch.zeros((1, 2, 8, 14), dtype=torch.bfloat16), None, None),
+    ("D 16", torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16), None, None),
+    ("D 32", torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16), None, None),
+    ("D 96", torch.zeros((1, 2, 8, 96), dtype=torch.bfloat16), None, None),
+    ("d + 3 cut view", _bshd(1, 5, 2, 128, pad=3), None, None),
+    ("odd base offset", _shifted((1, 2, 8, 128)), None, None),
+    ("odd base offset of v only", torch.zeros((1, 2, 8, 128),
+                                               dtype=torch.bfloat16),
+     None, _shifted((1, 2, 8, 128))),
+    ("strided D", torch.zeros((1, 2, 8, 256),
+                              dtype=torch.bfloat16)[..., ::2], None, None),
+    ("float32 k", torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16),
+     torch.zeros((1, 2, 8, 64)), None),
+    ("3-d", torch.zeros((2, 8, 64), dtype=torch.bfloat16), None, None),
+]
+
+
+@pytest.mark.parametrize("what,q,k,v", ELIGIBLE, ids=[c[0] for c in ELIGIBLE])
+def test_wgmma_rule_admits(what, q, k, v):
+    k = q if k is None else k
+    v = k if v is None else v
+    assert wgmma_eligible(q, k, v)
+
+
+@pytest.mark.parametrize("what,q,k,v", INELIGIBLE,
+                         ids=[c[0] for c in INELIGIBLE])
+def test_wgmma_rule_refuses(what, q, k, v):
+    k = q if k is None else k
+    v = k if v is None else v
+    assert not wgmma_eligible(q, k, v)
+
+
+def test_wgmma_rule_ignores_strides_of_extent_one():
+    """A dimension of extent 1 is never stepped over, so its stride may be
+    anything; one longer than 1 may not."""
+    base = torch.zeros((4, 3, 128), dtype=torch.bfloat16)
+    q = base.as_strided((1, 1, 3, 128), (5, 7, 128, 1))
+    assert wgmma_eligible(q, q, q)
+    q = base.as_strided((2, 1, 3, 128), (5, 7, 128, 1))
+    assert not wgmma_eligible(q, q, q)
+    q = base.as_strided((1, 2, 3, 128), (0, 0, 128, 1))
+    assert not wgmma_eligible(q, q, q)  # a broadcast head: stride 0
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 7, 1, 40, 40, 128), True),  # the layers' prefill at qwen2-7b's D
+    ((1, 2, 2, 1, 70, 256), False),
+])
+def test_cpu_attention_on_eligible_operands_takes_the_plain_path(shape,
+                                                                 causal):
+    """Operands the wgmma rule admits, on the CPU: ``ops.attention`` is the
+    plain version, bit for bit, and launches nothing."""
+    b, hq, hkv, sq, sk, d = shape
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h, d))
+                                .astype(np.float32)).to(torch.bfloat16)
+               .transpose(1, 2) for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+    assert wgmma_eligible(q, k, v)
+    before = dict(ops.LAUNCHES)
+    got = ops.attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES == before
+    assert torch.equal(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("entry", [flash_attention_cuda,
+                                   flash_attention_simple_cuda,
+                                   flash_attention_wgmma_cuda])
+def test_kernel_entries_reject_eligible_cpu_tensors(entry):
+    """bf16 operands the wgmma rule admits, but on the CPU: every entry
+    raises before it launches either kernel."""
+    q = torch.zeros((1, 2, 4, 128), dtype=torch.bfloat16)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        entry(q, q[:, :1], q[:, :1])
+    assert ops.LAUNCHES == before

@@ -21,8 +21,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.delta_probe import delta_probe_cuda, delta_probe_plain
 from repro_torch.kernels.fingerprint import (fingerprint_rows_cuda,
                                              fingerprint_rows_plain)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda, flash_attention_plain, flash_attention_simple_cuda,
+    flash_attention_wgmma_cuda, wgmma_eligible)
 from repro_torch.kernels.owned_probe import (eqrange_owned_cuda,
                                              eqrange_owned_plain)
 from repro_torch.kernels.replay import replay_delta_cuda, replay_delta_plain
@@ -328,36 +329,127 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 BF16_STEPS, BF16_ABS = 2 ** -6, 1e-5
 
 
+def _hold_attention(got, q, k, v, causal, dtype, scale=None):
+    """``got`` against the plain version on the CPU, with the stated
+    tolerances."""
+    # the plain version runs twice and the second call is compared: the
+    # first float32 CPU einsum in a process has been seen off by up to
+    # 9e-5 on the card's host, once in several runs
+    plain = (q.cpu(), k.cpu(), v.cpu())
+    flash_attention_plain(*plain, causal=causal, scale=scale)
+    want = flash_attention_plain(*plain, causal=causal, scale=scale)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert got.is_contiguous()
+    diff = (got.cpu().float() - want.float()).abs()
+    assert float(diff.max()) < ATTN_TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert bool((diff <= BF16_STEPS * want.float().abs() + BF16_ABS)
+                    .all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,causal", ATTN_SHAPES)
 def test_flash_attention_kernel_matches_plain(cuda_device, shape, causal,
                                               dtype):
-    """The kernel against its plain version, q a strided view: the
+    """The simple kernel against its plain version, q a strided view: the
     transpose of ``[B, S, H, D]`` the layers hand over, its rows cut from
-    wider ones (so it is not contiguous at Sq = 1 either)."""
+    wider ones (so it is not contiguous at Sq = 1 either).  The cut (d + 3
+    columns) breaks the wgmma kernel's rule, so the dispatcher takes the
+    simple kernel in both dtypes."""
     b, hq, hkv, sq, sk, d = shape
     rng = np.random.default_rng(sum(shape))
     q = _t(rng.normal(size=(b, sq, hq, d + 3)).astype(np.float32),
            cuda_device).to(dtype)[..., :d].transpose(1, 2)
     k, v = (_t(rng.normal(size=(b, hkv, sk, d)).astype(np.float32),
                cuda_device).to(dtype) for _ in range(2))
-    assert not q.is_contiguous()
-    before = ops.LAUNCHES["flash_attention"]
+    assert not q.is_contiguous() and not wgmma_eligible(q, k, v)
+    before = dict(ops.LAUNCHES)
     got = flash_attention_cuda(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == before + 1
-    # the plain version runs twice and the second call is compared: the
-    # first float32 CPU einsum in a process has been seen off by up to
-    # 9e-5 on the card's host, once in several runs
-    plain = (q.cpu(), k.cpu(), v.cpu())
-    flash_attention_plain(*plain, causal=causal)
-    want = flash_attention_plain(*plain, causal=causal)
-    assert got.dtype == want.dtype == dtype and got.shape == want.shape
-    diff = (got.cpu().float() - want.float()).abs()
-    assert float(diff.max()) < ATTN_TOL[dtype]
-    if dtype == torch.bfloat16:
-        assert bool((diff <= BF16_STEPS * want.float().abs() + BF16_ABS)
-                    .all())
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert (ops.LAUNCHES["flash_attention_wgmma"]
+            == before["flash_attention_wgmma"])
+    _hold_attention(got, q, k, v, causal, dtype)
+
+
+# (B, Hq, Hkv, Sq, Sk, D), causal, q as a view of [B, S, H, D], the softmax
+# scale (None: D^-1/2): shapes the wgmma kernel's rule admits — D 64 / 128 /
+# 256, GQA groups 1 and 7, Sq = 1, ragged Sq and Sk around the 128-row query
+# and 64-key tiles, causal with Sq != Sk, the 2048 x 2048 long rows, and one
+# scale given by the caller
+WGMMA_SHAPES = [
+    ((1, 2, 2, 128, 128, 64), True, False, None),
+    ((2, 4, 2, 256, 256, 64), True, True, None),
+    ((1, 4, 4, 1, 300, 64), False, True, None),
+    ((1, 2, 1, 64, 192, 128), False, False, None),
+    ((1, 7, 7, 129, 129, 128), True, True, None),
+    ((1, 14, 2, 33, 65, 128), True, True, None),
+    ((1, 14, 2, 300, 257, 128), True, False, None),
+    ((1, 7, 1, 65, 200, 128), True, True, None),  # causal, Sq < Sk
+    ((1, 7, 1, 257, 129, 128), True, True, None),  # causal, Sq > Sk
+    ((1, 7, 1, 1, 513, 128), True, True, None),  # Sq = 1, causal: key 0 only
+    ((1, 4, 4, 100, 257, 256), False, True, None),
+    ((1, 7, 1, 1, 513, 256), False, True, None),
+    ((1, 2, 2, 300, 300, 256), True, False, None),
+    ((1, 7, 1, 2048, 2048, 128), True, True, None),
+    ((1, 2, 2, 2048, 2048, 256), True, True, None),
+    ((1, 4, 4, 70, 70, 64), True, False, 0.3),  # a scale other than D^-1/2
+]
+
+
+@pytest.mark.parametrize("shape,causal,bshd,scale", WGMMA_SHAPES)
+def test_flash_attention_wgmma_kernel_matches_plain(cuda_device, shape,
+                                                    causal, bshd, scale):
+    """The wgmma kernel, reached through the dispatcher, against the plain
+    version: one launch of it and none of the simple kernel."""
+    b, hq, hkv, sq, sk, d = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+
+    def operand(h, s):
+        x = rng.normal(size=(b, s, h, d) if bshd else (b, h, s, d))
+        x = _t(x.astype(np.float32), cuda_device).to(torch.bfloat16)
+        return x.transpose(1, 2) if bshd else x
+
+    q, k, v = operand(hq, sq), operand(hkv, sk), operand(hkv, sk)
+    assert wgmma_eligible(q, k, v)
+    before = dict(ops.LAUNCHES)
+    got = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES["flash_attention_wgmma"]
+            == before["flash_attention_wgmma"] + 1)
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"]
+    _hold_attention(got, q, k, v, causal, torch.bfloat16, scale)
+
+
+def test_flash_attention_wgmma_wrapper_validates_inputs(cuda_device):
+    q = torch.zeros((1, 4, 8, 128), dtype=torch.bfloat16, device=cuda_device)
+    kv = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16,
+                     device=cuda_device)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="must all be torch.bfloat16"):
+        flash_attention_wgmma_cuda(q.float(), kv.float(), kv.float())
+    with pytest.raises(ValueError, match="must all be torch.bfloat16"):
+        flash_attention_wgmma_cuda(q, kv.half(), kv)
+    with pytest.raises(ValueError, match="the wgmma kernel takes"):
+        flash_attention_wgmma_cuda(q[..., :32], kv[..., :32], kv[..., :32])
+    wide = torch.zeros((1, 8, 4, 131), dtype=torch.bfloat16,
+                       device=cuda_device)[..., :128].transpose(1, 2)
+    with pytest.raises(ValueError, match="the wgmma kernel takes"):
+        flash_attention_wgmma_cuda(wide, kv, kv)
+    flat = torch.zeros(4 * 8 * 128 + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="the wgmma kernel takes"):
+        flash_attention_wgmma_cuda(flat[1:].view(1, 4, 8, 128), kv, kv)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention_wgmma_cuda(q, kv[:, :1].expand(1, 3, 8, 128),
+                                   kv[:, :1].expand(1, 3, 8, 128))
+    with pytest.raises(ValueError, match="at least one key"):
+        flash_attention_wgmma_cuda(q, kv[:, :, :0], kv[:, :, :0])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention_wgmma_cuda(q, kv.cpu(), kv)
+    assert ops.LAUNCHES == before
+    empty = flash_attention_wgmma_cuda(q[:, :, :0], kv, kv)
+    assert empty.shape == (1, 4, 0, 128) and ops.LAUNCHES == before
 
 
 def test_flash_attention_wrapper_validates_inputs(cuda_device):
@@ -380,6 +472,8 @@ def test_flash_attention_wrapper_validates_inputs(cuda_device):
         flash_attention_cuda(q, kv[:, :, :0], kv[:, :, :0])
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attention_cuda(q, kv.cpu(), kv)
+    with pytest.raises(ValueError, match="float32 or all"):
+        flash_attention_simple_cuda(q.half(), kv.half(), kv.half())
     assert ops.LAUNCHES["flash_attention"] == before
 
 
